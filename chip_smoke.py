@@ -1,31 +1,57 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one GPU and check it.
+"""Drive the PyTorch/CUDA port's paths on one GPU and check them.
 
     python3 chip_smoke.py        # one GPU; takes no arguments
 
 Phases (every failure ends the run with a non-zero exit):
 
 1. ``build``   — print torch/CUDA versions and the card's name and power
-   limit; build the three CUDA kernels from ``src/repro_torch/csrc``.
+   limit; build the seven CUDA kernels (five sources, one ``nvcc`` each,
+   all started together) from ``src/repro_torch/csrc``.
 2. ``kernels`` — each kernel equals its plain PyTorch version on the card,
-   on random inputs and edge cases (hashes ≥ 2³¹, empty rows, slots -1 and
-   ≥ cap, batches that fill no tile, pulled rows narrower than L).
-3. ``small``   — karate, clique(8) and rmat(9, 16) with S ∈ {1, 4}, push and
-   push-pull, dense and ragged, TriangleCount and DegreeTriples: results
-   and stats on the card equal the port on the CPU, and the triangle
-   count equals the pure-Python oracle. DegreeTriples' float32 degree bins
-   on the card equal the CPU's around every power of two up to 2³¹.
-4. ``full``    — the deployment: Graph500 R-MAT (a=0.57, b=0.19, c=0.19),
-   scale 18, edge factor 16, seed 0, with degree metadata, S=8 logical
-   shards on the card, dense transport, ``plan_engine(..., push_cap=4096,
-   pull_q_cap=16)``; TriangleCount and DegreeTriples(capacity=4096), push
-   and push-pull, through the user entry points. Push equals push-pull,
-   the DegreeTriples total equals the triangle count, every run is exact,
-   every kernel launched. The peak device memory is read from that run;
-   a later DegreeTriples push-pull run captures the inputs of one push and
-   one pull superstep, on which each kernel equals its plain version.
+   on random inputs and edge cases (hashes ≥ 2³¹, empty and full rows,
+   slots -1 and ≥ cap, contested slots, batches with no valid entry or
+   that fill no tile, pulled rows narrower than L).
+3. ``small``   — karate, clique(8) and rmat(9, 16) with seeded metadata and
+   temporal_social(1500, 30000, seed=1), with S ∈ {1, 4}, push and
+   push-pull, dense and ragged: a bundle of all eight built-in surveys
+   with an Enumerate buffer small enough to wrap, push-pull with both
+   pull kernels (fused and split); on the first three graphs also
+   TriangleCount and DegreeTriples (the first path) and each new survey
+   alone. Results and stats on the card equal the port on the CPU, and
+   the triangle count equals the pure-Python oracle. The float32 bins of DegreeTriples (around every
+   power of two up to 2³¹) and of ClosureTime (the 4,096 float32
+   neighbours of every power of two up to 2²⁰) on the card equal the
+   CPU's.
+4. ``full``    — Graph500 R-MAT (a=0.57, b=0.19, c=0.19), scale 18, edge
+   factor 16, seed 0; S=8 logical shards on the card, dense transport,
+   ``plan_engine(..., push_cap=4096, pull_q_cap=16)``, through the user
+   entry points (``shard_dodgr`` → ``plan_engine`` → ``survey_push_only``
+   / ``survey_push_pull``). Three paths, each with the launch counts set
+   to 0 just before it and read just after:
+
+   a. the first slice's: degree metadata; TriangleCount and
+      DegreeTriples(capacity=4096), push and push-pull. Push equals
+      push-pull, the DegreeTriples total equals the triangle count.
+   b. the metadata polling path: label, degree, timestamp and timestamp
+      bucket metadata (``survey_meta``), one push-pull SurveyBundle of all
+      eight built-ins. Its triangle count is the known 82,824,164; every
+      member's result is checked against it, Enumerate's rows and the
+      top-k triangles against the edge set, the top-k weights against
+      the timestamps. Peak device memory is read from this run; a short
+      window of it is profiled for the device's idle share.
+   c. the split pull kernel: TriangleCount push-pull with
+      ``pull_kernel="split"``, equal to the fused run in count and stats.
+
+   Every run is exact and every kernel of a path launched on it. A
+   capture run (DegreeTriples and Enumerate bundled, on path a's graph)
+   and path c keep one superstep's operands of each kernel, on which each
+   kernel equals its plain version; on the counting-set operands
+   ``hist_add`` and ``hist_max`` equal their plain versions and together
+   equal ``fold_count_max``.
 5. Timing of each kernel at those captured shapes (median of CUDA-event
-   times), its plain version's, its bound, and one ``kernels`` JSON line.
+   times), its plain version's, its bound, a library call's where one
+   computes the same function, and one ``kernels`` JSON line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Details go to ``build/chip_smoke.json``. The script imports nothing
@@ -33,17 +59,22 @@ of JAX; it needs ``src/repro_torch`` beside it.
 """
 from __future__ import annotations
 
+import dataclasses
+import importlib
 import json
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 FULL_SCALE = 18                # R-MAT scale of the full-size deployment
+FULL_TRIANGLES = 82_824_164    # its triangle count (the cell's known count)
+PROFILE_PULL_STEPS = 16        # pull supersteps in the bundle's profiled window
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 # The data sheet gives no int32 rate; its float32 rate outside the tensor
 # cores (67 T/s) is at least the int32 one, so the bound stays a lower bound
@@ -67,15 +98,39 @@ KARATE_EDGES = (
 )
 
 KERNELS = (
-    # name, ops module, source, the TPU kernel it replaces
-    ("wedge_check", "wedge_check", "src/repro_torch/csrc/wedge_check.cu",
+    # name, ops module, its launch counter, source, the TPU kernel it replaces
+    ("wedge_check", "wedge_check", "launches",
+     "src/repro_torch/csrc/wedge_check.cu",
      "src/repro/kernels/wedge_check/wedge_check.py:50"),
-    ("wedge_intersect", "wedge_intersect",
+    ("wedge_intersect", "wedge_intersect", "launches",
      "src/repro_torch/csrc/wedge_intersect.cu",
      "src/repro/kernels/wedge_intersect/wedge_intersect.py:75"),
-    ("fold_count_max", "fold_scatter", "src/repro_torch/csrc/fold_scatter.cu",
+    ("fold_count_max", "fold_scatter", "launches",
+     "src/repro_torch/csrc/fold_scatter.cu",
      "src/repro/kernels/fold_scatter/fold_scatter.py:65"),
+    ("ring_set", "fold_scatter", "ring_set_launches",
+     "src/repro_torch/csrc/fold_scatter.cu",
+     "src/repro/kernels/fold_scatter/fold_scatter.py:122"),
+    ("intersect", "intersect", "launches", "src/repro_torch/csrc/intersect.cu",
+     "src/repro/kernels/intersect/intersect.py:51"),
+    ("hist_add", "hist", "hist_add_launches", "src/repro_torch/csrc/hist.cu",
+     "src/repro/kernels/hist/hist.py:37"),
+    ("hist_max", "hist", "hist_max_launches", "src/repro_torch/csrc/hist.cu",
+     "src/repro/kernels/hist/hist.py:74"),
 )
+
+# the kernels each full-size path must launch, and the path whose count
+# the kernels line reports
+PATH_KERNELS = {
+    "first": ("wedge_check", "wedge_intersect", "fold_count_max"),
+    "bundle": ("wedge_check", "wedge_intersect", "fold_count_max",
+               "ring_set", "hist_add", "hist_max"),
+    "split": ("wedge_check", "intersect"),
+}
+REPORTED_PATH = {"wedge_check": "first", "wedge_intersect": "first",
+                 "fold_count_max": "first", "ring_set": "bundle",
+                 "hist_add": "bundle", "hist_max": "bundle",
+                 "intersect": "split"}
 
 
 def log(*a):
@@ -90,6 +145,35 @@ def require(cond, what):
 def sync(torch, dev):
     if dev.type == "cuda":
         torch.cuda.synchronize()
+
+
+def _ops(mod: str):
+    return importlib.import_module(f"repro_torch.kernels.{mod}.ops")
+
+
+def reset_launches():
+    for _, mod, counter, _, _ in KERNELS:
+        setattr(_ops(mod), counter, 0)
+
+
+def read_launches() -> dict:
+    return {name: getattr(_ops(mod), counter)
+            for name, mod, counter, _, _ in KERNELS}
+
+
+def same(a, b) -> bool:
+    """Survey results or stats equal exactly: dicts, tuples, numpy arrays
+    (dtype, shape and bytes) and scalars."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(same(a[k], b[k]) for k in a))
+    if isinstance(a, (tuple, list)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(same(x, y) for x, y in zip(a, b)))
+    if isinstance(a, np.ndarray):
+        return (isinstance(b, np.ndarray) and a.dtype == b.dtype
+                and a.shape == b.shape and a.tobytes() == b.tobytes())
+    return a == b
 
 
 # ---------------------------------------------------------------------------
@@ -139,6 +223,11 @@ def _sorted_keys(rng, n):
     return d[order], h[order], i[order]
 
 
+def _tensors(torch, dev, *arrays):
+    return tuple(torch.as_tensor(np.ascontiguousarray(a), device=dev)
+                 for a in arrays)
+
+
 def wedge_check_inputs(rng, S, E, B, dev, torch):
     keys = [_sorted_keys(rng, E) for _ in range(S)]
     kd = np.stack([k[0] for k in keys])
@@ -153,9 +242,22 @@ def wedge_check_inputs(rng, S, E, B, dev, torch):
     qi = np.take_along_axis(ki, pick, 1)
     qi[:, ::3] = rng.integers(0, E, (S, B))[:, ::3]
     qh[:, ::5] = rng.integers(0, 2**32, (S, B), dtype=np.uint64)[:, ::5].astype(np.uint32)
-    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
-    return (t(kd), t(_u32_bits(kh)), t(ki), t(lo), t(hi), t(qd),
-            t(_u32_bits(qh)), t(qi))
+    return _tensors(torch, dev, kd, _u32_bits(kh), ki, lo, hi, qd,
+                    _u32_bits(qh), qi)
+
+
+def _padded_rows(rng, kd, kh, ki, ln, width):
+    """Rows of sorted keys with valid prefix ``ln``, padded to ``width``
+    with the owner's sentinels."""
+    B = len(ln)
+    rd = np.full((B, width), 2**30, np.int32)
+    rh = np.full((B, width), 0xFFFFFFFF, np.uint32)
+    ri = np.full((B, width), 2**30, np.int32)
+    for b in range(B):
+        n = int(ln[b])
+        sel = np.sort(rng.choice(len(kd), n, replace=False))
+        rd[b, :n], rh[b, :n], ri[b, :n] = kd[sel], kh[sel], ki[sel]
+    return rd, rh, ri
 
 
 def wedge_intersect_inputs(rng, E, B, Lr, L, dev, torch):
@@ -163,16 +265,25 @@ def wedge_intersect_inputs(rng, E, B, Lr, L, dev, torch):
     e = rng.integers(-2, E + 2, B).astype(np.int32)
     ln = rng.integers(0, Lr + 1, B).astype(np.int32)
     ln[::5] = 0                                   # empty rows
-    rd = np.full((B, Lr), 2**30, np.int32)
-    rh = np.full((B, Lr), 0xFFFFFFFF, np.uint32)
-    ri = np.full((B, Lr), 2**30, np.int32)
-    for b in range(B):
-        n = int(ln[b])
-        sel = np.sort(rng.choice(E, n, replace=False))
-        rd[b, :n], rh[b, :n], ri[b, :n] = kd[sel], kh[sel], ki[sel]
-    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
-    return (t(kd), t(_u32_bits(kh)), t(ki), t(e), t(rd), t(_u32_bits(rh)),
-            t(ri), t(ln))
+    rd, rh, ri = _padded_rows(rng, kd, kh, ki, ln, Lr)
+    return _tensors(torch, dev, kd, _u32_bits(kh), ki, e, rd, _u32_bits(rh),
+                    ri, ln)
+
+
+def intersect_inputs(rng, B, L, dev, torch):
+    """Rows of length ln (0 and L among them); candidates from the rows'
+    key pool or off it, a third with hashes ≥ 2³¹."""
+    kd, kh, ki = _sorted_keys(rng, 4 * L)
+    ln = rng.integers(0, L + 1, B).astype(np.int32)
+    ln[::4] = 0
+    ln[1::4] = L
+    rd, rh, ri = _padded_rows(rng, kd, kh, ki, ln, L)
+    pick = rng.integers(0, 4 * L, (B, L))
+    qd, qh, qi = kd[pick], kh[pick], ki[pick]
+    qh[:, ::3] = rng.integers(2**31, 2**32, (B, L), dtype=np.uint64)[:, ::3].astype(np.uint32)
+    qi[:, 1::5] = rng.integers(0, 4 * L, (B, L))[:, 1::5]
+    return _tensors(torch, dev, rd, _u32_bits(rh), ri, ln, qd, _u32_bits(qh),
+                    qi)
 
 
 def fold_inputs(rng, B, W, cap, dev, torch):
@@ -181,8 +292,24 @@ def fold_inputs(rng, B, W, cap, dev, torch):
     amounts = rng.integers(0, 4, B).astype(np.int32)
     rows = rng.integers(0, 2**32, (B, W), dtype=np.uint64).astype(np.uint32)
     rows[::4] = 0
-    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
-    return t(slots), t(amounts), t(_u32_bits(rows))
+    return _tensors(torch, dev, slots, amounts, _u32_bits(rows))
+
+
+def ring_inputs(rng, B, cap, case, dev, torch):
+    """Contested slots (a quarter of the table), slots -1 and ≥ cap mixed
+    in, or a batch with no valid entry."""
+    if case == "contested":
+        slots = rng.integers(0, max(1, cap // 4), B)
+    elif case == "none_valid":
+        slots = np.where(rng.random(B) < 0.5, -1, cap + rng.integers(0, 3, B))
+    else:
+        slots = rng.integers(-2, cap + 3, B)
+        slots[::5] = -1
+        slots[1::7] = cap
+    rows = rng.integers(0, 2**31 - 1, (B, 3))
+    prior = rng.integers(-1, 1000, (cap, 3))
+    return _tensors(torch, dev, prior.astype(np.int32), slots.astype(np.int32),
+                    rows.astype(np.int32))
 
 
 def equal_outputs(a, b, torch) -> int:
@@ -201,6 +328,8 @@ def equal_outputs(a, b, torch) -> int:
 
 def phase_kernels(torch, report, dev):
     from repro_torch.kernels.fold_scatter import ops as fs
+    from repro_torch.kernels.hist import ops as hist
+    from repro_torch.kernels.intersect import ops as isx
     from repro_torch.kernels.wedge_check import ops as wc
     from repro_torch.kernels.wedge_intersect import ops as wi
 
@@ -222,6 +351,30 @@ def phase_kernels(torch, report, dev):
         args = fold_inputs(rng, B, W, cap, dev, torch)
         equal_outputs(fs.fold_count_max(*args, cap),
                       fs.fold_count_max_plain(*args, cap), torch)
+        slots, amounts, rows = args
+        equal_outputs(hist.hist_add(slots, amounts, cap),
+                      hist.hist_add_plain(slots, amounts, cap), torch)
+        equal_outputs(hist.hist_max(slots, rows, cap),
+                      hist.hist_max_plain(slots, rows, cap), torch)
+        cases += 3
+    # a table too wide for shared memory (LocalVertexCount's), few slots
+    # (MaxEdgeLabelDist's), and a batch that hits nothing
+    for B, cap in ((200000, 262144), (300000, 16), (1000, 0)):
+        slots, amounts, _ = fold_inputs(rng, B, 1, max(cap, 1), dev, torch)
+        equal_outputs(hist.hist_add(slots, amounts, cap),
+                      hist.hist_add_plain(slots, amounts, cap), torch)
+        cases += 1
+    for B, cap, case in ((3, 8, "mixed"), (5000, 64, "contested"),
+                         (300000, 2**20, "mixed"), (1000, 40, "none_valid"),
+                         (100000, 1000, "contested")):
+        args = ring_inputs(rng, B, cap, case, dev, torch)
+        equal_outputs(fs.ring_set(*args, cap), fs.ring_set_plain(*args, cap),
+                      torch)
+        cases += 1
+    # L = 5000 rows exceed 48 KB of shared memory: the device-memory search
+    for B, L in ((4, 16), (300, 37), (1000, 421), (7, 5000)):
+        args = intersect_inputs(rng, B, L, dev, torch)
+        equal_outputs(isx.intersect(*args), isx.intersect_plain(*args), torch)
         cases += 1
     sync(torch, dev)
     report["kernel_cases"] = cases
@@ -229,7 +382,76 @@ def phase_kernels(torch, report, dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 3: small main path, card == CPU port == oracle
+# surveys and metadata of the slices' paths
+
+
+def survey_meta(g, seed: int):
+    """The metadata the bundle polls: vertex int (label, degree), edge int
+    tsbucket, edge float ts. A graph that carries temporal_social's label
+    and ts keeps them; otherwise labels are uniform in [0, 16) (its
+    community labels) and timestamps uniform in [0, 1e6) (its t_max),
+    drawn with ``numpy.random.default_rng(seed)``. The bucket is
+    int32(ts / max(ts) · 15), as the JAX package's multi-survey bench
+    makes it."""
+    from repro_torch.graphs.csr import HostGraph, MetaSpec
+
+    if g.spec.v_int == ("label",) and g.spec.e_float == ("ts",):
+        label, ts = g.vmeta_i[:, 0], g.emeta_f[:, 0]
+    else:
+        rng = np.random.default_rng(seed)
+        label = rng.integers(0, 16, g.n).astype(np.int32)
+        ts = rng.random(g.m, dtype=np.float32) * np.float32(1e6)
+    tsb = (ts / ts.max() * 15).astype(np.int32)
+    spec = MetaSpec(v_int=("label",), e_int=("tsbucket",), e_float=("ts",))
+    return HostGraph(g.n, g.src, g.dst, spec, label[:, None], None,
+                     tsb[:, None], ts[:, None]).with_degree_meta()
+
+
+def new_surveys(n: int, enum_cap: int) -> dict:
+    """The six surveys this slice ported, at the columns of survey_meta;
+    LabelTripleSet takes the counting set's unfused backend (hist_add +
+    hist_max), DegreeTriples the fused one."""
+    from repro_torch.core import surveys as sv
+
+    return {
+        "LocalVertexCount": sv.LocalVertexCount(n),
+        "ClosureTime": sv.ClosureTime(ts_col=0),
+        "MaxEdgeLabelDist": sv.MaxEdgeLabelDist(16),
+        "LabelTripleSet": sv.LabelTripleSet(capacity=4096,
+                                            counting_backend="scatter"),
+        "Enumerate": sv.Enumerate(capacity=enum_cap),
+        "TopKWeightedTriangles": sv.TopKWeightedTriangles(k=32),
+    }
+
+
+def bundle_of_all(n: int, enum_cap: int):
+    from repro_torch.core import surveys as sv
+
+    m = new_surveys(n, enum_cap)
+    return sv.SurveyBundle([
+        sv.TriangleCount(), m["LocalVertexCount"], m["ClosureTime"],
+        m["MaxEdgeLabelDist"], sv.DegreeTriples(deg_col=1, capacity=4096),
+        m["LabelTripleSet"], m["Enumerate"], m["TopKWeightedTriangles"]])
+
+
+def counting_total(res) -> int:
+    return sum(res["counts"].values()) + res["count_in_collided"]
+
+
+# ---------------------------------------------------------------------------
+# phase 3: small paths, card == CPU port == oracle
+
+
+def _float_sweep(k_max: int) -> np.ndarray:
+    """The 4,096 float32 neighbours on each side of every power of two up
+    to 2^k_max, and the powers themselves."""
+    out = []
+    for k in range(k_max + 1):
+        p = np.float32(2.0**k)
+        up = p + np.arange(4097, dtype=np.float32) * np.spacing(p)
+        down = p - np.arange(1, 4097, dtype=np.float32) * np.spacing(p / 2)
+        out += [up, down]
+    return np.concatenate(out).astype(np.float32)
 
 
 def phase_small(torch, report, dev):
@@ -237,7 +459,8 @@ def phase_small(torch, report, dev):
     from repro_torch.core.engine import survey_push_only, survey_push_pull
     from repro_torch.core.pushpull import plan_engine
     from repro_torch.core.ref import count_triangles_ref
-    from repro_torch.core.surveys import DegreeTriples, TriangleCount, ceil_log2_f32
+    from repro_torch.core.surveys import (ClosureTime, DegreeTriples,
+                                          TriangleCount, ceil_log2_f32)
     from repro_torch.graphs import generators
     from repro_torch.graphs.csr import HostGraph
 
@@ -246,38 +469,69 @@ def phase_small(torch, report, dev):
         + [np.arange(2**31 - 4096, 2**31)]).astype(np.int32))
     require(torch.equal(ceil_log2_f32(d.to(dev)).cpu(), ceil_log2_f32(d)),
             "DegreeTriples degree bins differ between the card and the CPU")
+    dt = torch.as_tensor(_float_sweep(20))
+    ct = ClosureTime()
+    require(torch.equal(ct._bucket(dt.to(dev)).cpu(), ct._bucket(dt)),
+            "ClosureTime bins differ between the card and the CPU")
     e = np.array(KARATE_EDGES, np.int64)
     graphs = {
-        "karate": HostGraph.from_edges(34, e[:, 0], e[:, 1]),
-        "clique8": generators.clique(8),
-        "rmat9": generators.rmat(9, 16, seed=0),
+        # name: graph, push_cap, pull_q_cap, whether the first path's
+        # surveys and each new survey alone run on it too (temporal_social
+        # runs the bundle alone, with wider caps, so that its long streams
+        # take fewer supersteps)
+        "karate": (HostGraph.from_edges(34, e[:, 0], e[:, 1]), 256, 8, True),
+        "clique8": (generators.clique(8), 256, 8, True),
+        "rmat9": (generators.rmat(9, 16, seed=0), 256, 8, True),
+        "social": (generators.temporal_social(1500, 30000, seed=1), 4096, 32,
+                   False),
     }
     runs = 0
     t0 = time.perf_counter()
-    for gname, g in graphs.items():
-        g = g.with_degree_meta()
-        t_ref = count_triangles_ref(g)
+    modes = (("push", "auto", survey_push_only),
+             ("pushpull", "fused", survey_push_pull),
+             ("pushpull", "split", survey_push_pull))
+    for gname, (g, push_cap, pull_q_cap, every) in graphs.items():
+        g_deg = g.with_degree_meta()
+        g_lab = survey_meta(g, seed=2)
+        t_ref = count_triangles_ref(g_deg)
         for S in (1, 4):
-            gr_gpu, _ = shard_dodgr(g, S, device=dev)
-            gr_cpu, _ = shard_dodgr(g, S, device="cpu")
+            shards = {name: (shard_dodgr(gg, S, device=dev)[0],
+                             shard_dodgr(gg, S, device="cpu")[0])
+                      for name, gg in (("deg", g_deg), ("lab", g_lab))}
             for transport in ("dense", "ragged"):
-                for mode, fn in (("push", survey_push_only),
-                                 ("pushpull", survey_push_pull)):
-                    for survey in (TriangleCount(), DegreeTriples(capacity=4096)):
-                        cfg, _ = plan_engine(g, S, survey, mode=mode,
-                                             push_cap=256, pull_q_cap=8,
+                for mode, kernel, fn in modes:
+                    cases = [("lab", bundle_of_all(g.n, enum_cap=32))]
+                    if every and kernel != "split":
+                        cases += [("deg", TriangleCount()),
+                                  ("deg", DegreeTriples(capacity=4096))]
+                    if every and (S, transport, kernel) == (4, "dense", "fused"):
+                        cases += [("lab", s) for s in
+                                  new_surveys(g.n, enum_cap=32).values()]
+                    for meta, survey in cases:
+                        gg = g_deg if meta == "deg" else g_lab
+                        cfg, _ = plan_engine(gg, S, survey, mode=mode,
+                                             push_cap=push_cap,
+                                             pull_q_cap=pull_q_cap,
                                              transport=transport)
+                        cfg = dataclasses.replace(cfg, pull_kernel=kernel)
+                        gr_gpu, gr_cpu = shards[meta]
                         res_g, st_g = fn(gr_gpu, survey, cfg)
                         res_c, st_c = fn(gr_cpu, survey, cfg)
-                        tag = f"{gname} S={S} {transport} {mode} {type(survey).__name__}"
-                        require(res_g == res_c, f"{tag}: card result != CPU result")
+                        tag = (f"{gname} S={S} {transport} {mode} {kernel} "
+                               f"{type(survey).__name__}")
+                        require(same(res_g, res_c), f"{tag}: card result != CPU result")
                         require(st_g == st_c, f"{tag}: card stats != CPU stats")
                         require(st_g["exact"], f"{tag}: inexact")
                         if isinstance(survey, TriangleCount):
                             require(res_g == t_ref, f"{tag}: {res_g} != oracle {t_ref}")
-                        else:
-                            total = sum(res_g["counts"].values()) + res_g["count_in_collided"]
+                        elif isinstance(survey, DegreeTriples):
+                            total = counting_total(res_g)
                             require(total == t_ref, f"{tag}: DegreeTriples total {total} != {t_ref}")
+                        elif "TriangleCount" in getattr(survey, "names", ()):
+                            require(res_g["TriangleCount"] == t_ref,
+                                    f"{tag}: bundle count != oracle {t_ref}")
+                            require(res_g["Enumerate"]["total_found"] == t_ref,
+                                    f"{tag}: Enumerate total != oracle {t_ref}")
                         runs += 1
         log(f"small: {gname} ({g.n} vertices, {g.m} edges, {t_ref} triangles) ok")
     report["small_runs"] = runs
@@ -291,9 +545,11 @@ def phase_small(torch, report, dev):
 
 class Recorder:
     """Wraps a kernel wrapper to keep the operands of its first call and of
-    its largest call (by operand size) — the inputs of one superstep of the
-    run. The wrapped function still counts its launches. It pins those
-    operands, so it wraps no run whose peak memory is read."""
+    its largest call (by operand size; the first of equal sizes, so the
+    first and fullest pull superstep where every call has one size) — the
+    inputs of one superstep of the run. The wrapped function still counts
+    its launches. It pins those operands, so it wraps no run whose peak
+    memory is read."""
 
     def __init__(self, module, name, torch):
         self.module, self.name, self.torch = module, name, torch
@@ -307,7 +563,7 @@ class Recorder:
     def __call__(self, *args, **kw):
         if self.first is None and args[0].numel():
             self.first = (args, kw)
-        if self.largest is None or self.size(args) >= self.size(self.largest[0]):
+        if self.largest is None or self.size(args) > self.size(self.largest[0]):
             self.largest = (args, kw)
         return self.fn(*args, **kw)
 
@@ -315,13 +571,91 @@ class Recorder:
         setattr(self.module, self.name, self.fn)
 
 
+def run_path(torch, dev, name, fn):
+    """One full-size path: launch counts set to 0 just before, read just
+    after; each kernel of the path must have launched."""
+    sync(torch, dev)
+    reset_launches()
+    out = fn()
+    sync(torch, dev)
+    launches = read_launches()
+    for k in PATH_KERNELS[name]:
+        require(launches[k] > 0, f"{k} never launched on the {name} path")
+    return out, launches
+
+
+class EdgeIndex:
+    """Host lookup of undirected edges (and their metadata rows)."""
+
+    def __init__(self, g):
+        self.n = g.n
+        key = g.src.astype(np.int64) * g.n + g.dst
+        self.order = np.argsort(key, kind="stable")
+        self.key = key[self.order]
+
+    def find(self, a, b):
+        """Edge rows of the pairs (a, b) and whether each exists."""
+        a, b = np.asarray(a, np.int64), np.asarray(b, np.int64)
+        k = np.minimum(a, b) * self.n + np.maximum(a, b)
+        i = np.minimum(np.searchsorted(self.key, k), len(self.key) - 1)
+        return self.order[i], self.key[i] == k
+
+    def triangles_real(self, tri) -> bool:
+        p, q, r = tri[:, 0], tri[:, 1], tri[:, 2]
+        return bool(all(self.find(x, y)[1].all()
+                        for x, y in ((p, q), (p, r), (q, r))))
+
+
+def check_bundle(res, st, g_lab, expect: int, full: dict):
+    """Each member of the full-size bundle against the count and the
+    graph."""
+    require(st["exact"], "bundle run inexact")
+    t = res["TriangleCount"]
+    require(t == expect, f"bundle TriangleCount {t} != {expect}")
+    en = res["Enumerate"]
+    require(en["total_found"] == t, f"Enumerate total {en['total_found']} != {t}")
+    require(counting_total(res["DegreeTriples"]) == t, "DegreeTriples total != count")
+    lvc = int(res["LocalVertexCount"].astype(np.int64).sum())
+    require(lvc == 3 * t, f"LocalVertexCount sums to {lvc}, not 3 * {t}")
+    joint = int(res["ClosureTime"]["joint"].astype(np.int64).sum())
+    require(joint == t, f"ClosureTime histogram sums to {joint}, not {t}")
+    mx = int(res["MaxEdgeLabelDist"].astype(np.int64).sum())
+    lts = counting_total(res["LabelTripleSet"])
+    require(mx == lts, f"MaxEdgeLabelDist sums to {mx}, LabelTripleSet to {lts}")
+    idx = EdgeIndex(g_lab)
+    tris = en["triangles"]
+    require(len(tris) >= min(100_000, t), f"Enumerate holds only {len(tris)} rows")
+    require(idx.triangles_real(tris), "an Enumerate row is not a triangle")
+    top = res["TopKWeightedTriangles"]
+    tt, w = top["triangles"], top["weights"]
+    require(len(tt) == min(32, t) and idx.triangles_real(tt),
+            "a top-k row is not a triangle")
+    ts = g_lab.emeta_f[:, 0]
+    e_pq, e_pr, e_qr = (idx.find(tt[:, i], tt[:, j])[0]
+                        for i, j in ((0, 1), (0, 2), (1, 2)))
+    require(np.array_equal(w, (ts[e_pq] + ts[e_pr]) + ts[e_qr]),
+            "top-k weights != the float32 sums of their edges' ts")
+    require(bool((np.diff(w) <= 0).all()), "top-k weights increase")
+    full["bundle_checks"] = dict(
+        triangles=t, enumerate_rows=int(len(tris)),
+        enumerate_overflowed=en["overflowed"], lvc_sum=lvc, closure_sum=joint,
+        distinct_label_triangles=mx,
+        label_triples=len(res["LabelTripleSet"]["counts"]),
+        label_collided_slots=res["LabelTripleSet"]["n_collided_slots"],
+        top_weight=float(w[0]))
+
+
 def phase_full(torch, report, scale, dev):
     from repro_torch.core.dodgr import shard_dodgr
     from repro_torch.core.engine import survey_push_only, survey_push_pull
     from repro_torch.core.pushpull import plan_engine
-    from repro_torch.core.surveys import DegreeTriples, TriangleCount
+    from repro_torch.core.ref import count_triangles_ref
+    from repro_torch.core.surveys import (DegreeTriples, Enumerate,
+                                          SurveyBundle, TriangleCount)
     from repro_torch.graphs import generators
     from repro_torch.kernels.fold_scatter import ops as fs
+    from repro_torch.kernels.hist import ops as hist
+    from repro_torch.kernels.intersect import ops as isx
     from repro_torch.kernels.wedge_check import ops as wc
     from repro_torch.kernels.wedge_intersect import ops as wi
 
@@ -330,9 +664,12 @@ def phase_full(torch, report, scale, dev):
                                  transport="dense", push_cap=4096,
                                  pull_q_cap=16)
     t0 = time.perf_counter()
-    g = generators.rmat(scale, 16, seed=0, a=0.57, b=0.19, c=0.19).with_degree_meta()
+    base = generators.rmat(scale, 16, seed=0, a=0.57, b=0.19, c=0.19)
+    g = base.with_degree_meta()
+    g_lab = survey_meta(base, seed=1)
     full["gen_s"] = time.perf_counter() - t0
     full["vertices"], full["edges"] = g.n, g.m
+    expect = FULL_TRIANGLES if scale == FULL_SCALE else count_triangles_ref(g)
     sync(torch, dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -346,91 +683,167 @@ def phase_full(torch, report, scale, dev):
         f"e_cap={gr.e_cap} d+max={gr.d_plus_max}; gen {full['gen_s']:.1f} s "
         f"shard {full['shard_s']:.1f} s")
 
+    def plan(gg, survey, mode):
+        t0 = time.perf_counter()
+        cfg, _ = plan_engine(gg, S, survey, mode=mode, push_cap=4096,
+                             pull_q_cap=16)
+        return cfg, time.perf_counter() - t0
+
     plans = {}
     for sname, survey in (("TriangleCount", TriangleCount()),
                           ("DegreeTriples", DegreeTriples(capacity=4096))):
         for mode in ("push", "pushpull"):
-            t0 = time.perf_counter()
-            cfg, rep = plan_engine(g, S, survey, mode=mode, push_cap=4096,
-                                   pull_q_cap=16)
-            plans[(sname, mode)] = (survey, cfg, time.perf_counter() - t0)
-            log(f"plan {sname} {mode}: {plans[(sname, mode)][2]:.1f} s, "
+            cfg, plan_s = plan(g, survey, mode)
+            plans[(sname, mode)] = (survey, cfg, plan_s)
+            log(f"plan {sname} {mode}: {plan_s:.1f} s, "
                 f"push steps {cfg.n_push_steps}, pull steps {cfg.n_pull_steps}, "
                 f"pull_edge_cap {cfg.pull_edge_cap}, pull_row_cap {cfg.pull_row_cap}")
 
-    # the main path: counts to 0 just before, read just after
-    for mod in (wc, wi, fs):
-        mod.launches = 0
+    # path a: the first slice's four runs
     results = {}
     runs = full["runs"] = {}
-    for (sname, mode), (survey, cfg, plan_s) in plans.items():
-        fn = survey_push_only if mode == "push" else survey_push_pull
-        sync(torch, dev)
-        t0 = time.perf_counter()
-        res, st = fn(gr, survey, cfg)
-        sync(torch, dev)
-        wall = time.perf_counter() - t0
-        results[(sname, mode)] = (res, st)
-        runs[f"{sname}/{mode}"] = dict(
-            plan_s=plan_s, survey_s=wall, n_push_steps=cfg.n_push_steps,
-            n_pull_steps=cfg.n_pull_steps, pull_edge_cap=cfg.pull_edge_cap,
-            pull_row_cap=cfg.pull_row_cap, stats=st)
-        log(f"survey {sname} {mode}: {wall:.2f} s, "
-            f"tris push {st['tris_push']:.0f} pull {st['tris_pull']:.0f}, "
-            f"exact {st['exact']}")
-    launches = {"wedge_check": wc.launches, "wedge_intersect": wi.launches,
-                "fold_count_max": fs.launches}
-    full["launches"] = launches
+
+    def first_path():
+        for (sname, mode), (survey, cfg, plan_s) in plans.items():
+            fn = survey_push_only if mode == "push" else survey_push_pull
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            res, st = fn(gr, survey, cfg)
+            sync(torch, dev)
+            wall = time.perf_counter() - t0
+            results[(sname, mode)] = (res, st)
+            runs[f"{sname}/{mode}"] = dict(
+                plan_s=plan_s, survey_s=wall, n_push_steps=cfg.n_push_steps,
+                n_pull_steps=cfg.n_pull_steps, pull_edge_cap=cfg.pull_edge_cap,
+                pull_row_cap=cfg.pull_row_cap, stats=st)
+            log(f"survey {sname} {mode}: {wall:.2f} s, "
+                f"tris push {st['tris_push']:.0f} pull {st['tris_pull']:.0f}, "
+                f"exact {st['exact']}")
+
+    launches = full["launches"] = {}
+    _, launches["first"] = run_path(torch, dev, "first", first_path)
     full["max_memory_allocated"] = (torch.cuda.max_memory_allocated()
                                     if dev.type == "cuda" else 0)
-
     tc_push = results[("TriangleCount", "push")][0]
     tc_pp = results[("TriangleCount", "pushpull")][0]
     require(tc_push == tc_pp, f"push {tc_push} != push-pull {tc_pp}")
+    require(tc_push == expect, f"triangle count {tc_push} != {expect}")
     for mode in ("push", "pushpull"):
-        dt = results[("DegreeTriples", mode)][0]
-        total = sum(dt["counts"].values()) + dt["count_in_collided"]
+        total = counting_total(results[("DegreeTriples", mode)][0])
         require(total == tc_push, f"DegreeTriples {mode} total {total} != {tc_push}")
     for key, (_, st) in results.items():
         require(st["exact"], f"{key} inexact")
-    for name, n in launches.items():
-        require(n > 0, f"{name} never launched on the main path")
     full["triangles"] = tc_push
-    log(f"full: {tc_push} triangles; launches {launches}; peak memory "
+    log(f"full: {tc_push} triangles; launches {launches['first']}; peak memory "
         f"{full['max_memory_allocated'] / 2**30:.2f} GiB")
     if dev.type == "cuda":
         survey, cfg, _ = plans[("TriangleCount", "pushpull")]
-        full["profile"] = profile_run(torch, lambda: survey_push_pull(gr, survey, cfg))
+        full["profile"] = profile_run(
+            torch, "TriangleCount pushpull", lambda: survey_push_pull(gr, survey, cfg))
 
-    # capture one superstep's inputs of each kernel (DegreeTriples push-pull
-    # runs all three), then each kernel against its plain version on them
+    # path b: the metadata polling path, a bundle of all eight built-ins
+    t0 = time.perf_counter()
+    gr_lab, _ = shard_dodgr(g_lab, S, device=dev)
+    sync(torch, dev)
+    full["bundle_shard_s"] = time.perf_counter() - t0
+    bundle = bundle_of_all(g_lab.n, enum_cap=2**20)
+    cfg_b, plan_s = plan(g_lab, bundle, "pushpull")
+    full["bundle_plan"] = dict(
+        plan_s=plan_s, n_push_steps=cfg_b.n_push_steps,
+        n_pull_steps=cfg_b.n_pull_steps, pull_edge_cap=cfg_b.pull_edge_cap,
+        pull_row_cap=cfg_b.pull_row_cap, meta_widths=cfg_b.meta_widths,
+        determinism=cfg_b.determinism)
+    log(f"plan bundle pushpull: {full['bundle_plan']}")
+    require(cfg_b.determinism == "bitwise", "bundle not stamped bitwise")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (res_b, st_b), launches["bundle"] = run_path(
+        torch, dev, "bundle", lambda: survey_push_pull(gr_lab, bundle, cfg_b))
+    full["bundle_s"] = time.perf_counter() - t0
+    full["bundle_max_memory_allocated"] = (torch.cuda.max_memory_allocated()
+                                           if dev.type == "cuda" else 0)
+    full["bundle_stats"] = st_b
+    check_bundle(res_b, st_b, g_lab, expect, full)
+    log(f"survey bundle pushpull: {full['bundle_s']:.2f} s, launches "
+        f"{launches['bundle']}, peak memory "
+        f"{full['bundle_max_memory_allocated'] / 2**30:.2f} GiB; "
+        f"checks {full['bundle_checks']}")
+    if dev.type == "cuda":
+        window = dataclasses.replace(cfg_b, n_push_steps=0,
+                                     n_pull_steps=PROFILE_PULL_STEPS)
+        with warnings.catch_warnings():      # a window, inexact by design
+            warnings.simplefilter("ignore", RuntimeWarning)
+            full["bundle_profile"] = profile_run(
+                torch, f"bundle, {PROFILE_PULL_STEPS} pull supersteps",
+                lambda: survey_push_pull(gr_lab, bundle, window))
+
+    # path c: the split pull kernel
+    survey, cfg, _ = plans[("TriangleCount", "pushpull")]
+    split = dataclasses.replace(cfg, pull_kernel="split")
+    rec_is = Recorder(isx, "intersect", torch)
+    t0 = time.perf_counter()
+    (res_s, st_s), launches["split"] = run_path(
+        torch, dev, "split", lambda: survey_push_pull(gr, survey, split))
+    full["split_s"] = time.perf_counter() - t0
+    rec_is.restore()
+    require(launches["split"]["wedge_intersect"] == 0,
+            "the split path launched wedge_intersect")
+    res_f, st_f = results[("TriangleCount", "pushpull")]
+    require(res_s == res_f, f"split count {res_s} != fused {res_f}")
+    require(st_s == st_f, "split stats != fused stats")
+    log(f"survey TriangleCount pushpull split: {full['split_s']:.2f} s == fused; "
+        f"launches {launches['split']}")
+
+    # capture one superstep's inputs of each kernel: DegreeTriples and
+    # Enumerate bundled on path a's graph run wedge_check, wedge_intersect,
+    # fold_count_max and ring_set
     recs = [Recorder(wc, "wedge_check", torch),
             Recorder(wi, "wedge_intersect", torch),
-            Recorder(fs, "fold_count_max", torch)]
-    survey, cfg, _ = plans[("DegreeTriples", "pushpull")]
-    require(survey_push_pull(gr, survey, cfg)[0] == results[("DegreeTriples", "pushpull")][0],
-            "capture run differs from the main path's")
+            Recorder(fs, "fold_count_max", torch),
+            Recorder(fs, "ring_set", torch)]
+    survey_dt, cfg_dt, _ = plans[("DegreeTriples", "pushpull")]
+    cap_bundle = SurveyBundle([survey_dt, Enumerate(capacity=2**20)])
+    res_cap, _ = survey_push_pull(gr, cap_bundle, cfg_dt)
     for r in recs:
         r.restore()
+    require(res_cap["DegreeTriples"] == results[("DegreeTriples", "pushpull")][0],
+            "capture run's DegreeTriples differs from the first path's")
+    require(same(res_cap["Enumerate"], res_b["Enumerate"]),
+            "capture run's Enumerate differs from the bundle's")
+    fold_args, fold_kw = recs[2].largest
+    slots, amounts, rows, cap = fold_args
     captured = {
         "wedge_check": (recs[0].largest, wc.wedge_check, wc.wedge_check_plain),
         "wedge_intersect": (recs[1].largest, wi.wedge_intersect,
                             wi.wedge_intersect_plain),
         "fold_count_max": (recs[2].largest, fs.fold_count_max,
                            fs.fold_count_max_plain),
+        "ring_set": (recs[3].largest, fs.ring_set, fs.ring_set_plain),
+        "intersect": (rec_is.largest, isx.intersect, isx.intersect_plain),
+        "hist_add": (((slots, amounts, cap), {}), hist.hist_add,
+                     hist.hist_add_plain),
+        "hist_max": (((slots, rows, cap), {}), hist.hist_max,
+                     hist.hist_max_plain),
     }
     errs = {}
     for name, ((args, kw), kern, plain) in captured.items():
         errs[name] = equal_outputs(kern(*args, **kw), plain(*args, **kw), torch)
-    equal_outputs(fs.fold_count_max(*recs[2].first[0], **recs[2].first[1]),
-                  fs.fold_count_max_plain(*recs[2].first[0], **recs[2].first[1]),
-                  torch)
+    for rec, kern, plain in ((recs[2], fs.fold_count_max, fs.fold_count_max_plain),
+                             (recs[3], fs.ring_set, fs.ring_set_plain)):
+        equal_outputs(kern(*rec.first[0], **rec.first[1]),
+                      plain(*rec.first[0], **rec.first[1]), torch)
+    for args in (fold_args, recs[2].first[0]):
+        equal_outputs((hist.hist_add(args[0], args[1], args[3]),
+                       hist.hist_max(args[0], args[2], args[3])),
+                      fs.fold_count_max(*args), torch)
     sync(torch, dev)
-    log("full: each kernel == its plain version on captured superstep inputs")
+    log("full: each kernel == its plain version on captured superstep inputs; "
+        "hist_add + hist_max == fold_count_max")
     return captured, launches, errs
 
 
-def profile_run(torch, fn, top=10) -> dict:
+def profile_run(torch, label, fn, top=12) -> dict:
     """Device time by kernel over one run (torch.profiler, CUDA activity
     only): busy time, wall time, idle share, the heaviest kernels."""
     from torch.profiler import ProfilerActivity, profile
@@ -449,11 +862,11 @@ def profile_run(torch, fn, top=10) -> dict:
             rows.append((us, ev.count, ev.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
-    out = dict(wall_s=wall, device_busy_s=busy,
+    out = dict(label=label, wall_s=wall, device_busy_s=busy,
                idle_share=(1 - busy / wall) if busy else None,
                top=[dict(kernel=k[:120], ms=us / 1e3, count=c)
                     for us, c, k in rows[:top]])
-    log(f"profile TriangleCount pushpull: wall {wall:.2f} s, device busy "
+    log(f"profile {label}: wall {wall:.2f} s, device busy "
         f"{busy:.2f} s, idle share {out['idle_share']}")
     for r in out["top"]:
         log(f"  {r['ms']:10.1f} ms  x{r['count']:<7} {r['kernel']}")
@@ -468,10 +881,15 @@ def time_ms(torch, fn, reps=20, warmup=3) -> float:
     """Median device time of one call, by CUDA events. A spin kernel
     keeps the card busy while the host enqueues every call, so the events
     time the calls back to back on the device and not the host's
-    wrapper overhead."""
+    wrapper overhead. Calls slower than 100 ms take 3 repetitions."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    if time.perf_counter() - t0 > 0.1:
+        reps = min(reps, 3)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
     torch.cuda._sleep(200_000_000)
     ev[0].record()
@@ -516,8 +934,8 @@ def bound_work(torch, name, args, kw) -> tuple[int, int]:
     read only the keys they probe; dropped slots need no operands), every
     output written once. Operations: OPS_PER_PROBE for each probe a search
     takes, the clamped candidate index (three) per wedge_intersect lane,
-    the range check (two) per fold element and one atomic per kept
-    word."""
+    the range check (two) per scatter element and one atomic or store per
+    kept word."""
     from repro_torch.kernels.wedge_check.ops import lower_bound_steps
 
     if name == "wedge_check":
@@ -542,46 +960,97 @@ def bound_work(torch, name, args, kw) -> tuple[int, int]:
                                lower_bound_steps(max(L, Lr)))
         nbytes = 4 * 2 * B + 12 * int(cand.sum()) + 12 * int(seen.sum()) + 8 * B * L
         return nbytes, 3 * B * L + OPS_PER_PROBE * probes
-    slots, amounts, rows, cap = args
-    B, W = rows.shape
+    if name == "intersect":
+        rd, rh, ri, ln, qd, qh, qi = args
+        B, L = qd.shape
+        seen, probes = _probed(torch, rd, rh, ri, torch.zeros_like(qi),
+                               ln.clamp(0, L)[:, None].expand(B, L).contiguous(),
+                               qd, qh, qi, lower_bound_steps(L))
+        nbytes = 4 * B + 12 * B * L + 12 * int(seen.sum()) + 4 * B * L
+        return nbytes, OPS_PER_PROBE * probes
+    if name == "ring_set":
+        prior, slots, rows, cap = args
+        B = slots.shape[0]
+        s = slots[(slots >= 0) & (slots < cap)]
+        winners = int(torch.unique(s).numel())
+        return (4 * B + 12 * winners + 2 * 12 * cap,
+                2 * B + int(s.numel()) + 3 * winners)
+    slots, cap = args[0], args[-1]
+    B = slots.shape[0]
     kept = int(((slots >= 0) & (slots < cap)).sum())
+    if name == "hist_add":
+        return 4 * B + 4 * kept + 4 * cap, 2 * B + kept
+    if name == "hist_max":
+        W = args[1].shape[-1]
+        return 4 * B + 4 * kept * W + 4 * cap * W, 2 * B + kept * W
+    slots, amounts, rows, cap = args              # fold_count_max
+    W = rows.shape[-1]
     return (4 * B + 4 * kept * (1 + W) + 4 * cap * (1 + W),
             2 * B + kept * (1 + W))
 
 
-def library_fold(torch, args):
-    """One PyTorch scatter pair computing fold_count_max's function
-    (slots remapped past the end and rows sign-flipped beforehand)."""
-    slots, amounts, rows, cap = args
-    W = rows.shape[-1]
-    s = torch.where((slots < 0) | (slots >= cap), cap, slots).long()
-    rows_k = rows ^ INT32_MIN
+def library_call(torch, name, args):
+    """One PyTorch call (or call pair) computing the kernel's function on
+    its operands, prepared outside the timed call (slots remapped past the
+    end, rows sign-flipped); None where PyTorch has none."""
+    if name in ("wedge_check", "wedge_intersect", "intersect"):
+        return None        # no PyTorch call lower-bounds a composite key
+    slots = args[1] if name == "ring_set" else args[0]
+    cap = args[-1]
+    dev = slots.device
+    ok = (slots >= 0) & (slots < cap)
+    if name == "ring_set":
+        # dropped elements offer -1 at slots of their own, so that no one
+        # slot serialises every dropped element's atomic
+        prior, _, rows, _ = args
+        gidx = torch.arange(slots.shape[0], dtype=torch.int64, device=dev)
+        s = torch.where(ok, slots.long(), gidx % cap)
+        v = torch.where(ok, gidx, -1)
+
+        def run():
+            win = torch.full((cap,), -1, dtype=torch.int64, device=dev)
+            win.scatter_reduce_(0, s, v, "amax")
+            torch.where((win >= 0)[:, None], rows[win.clamp_min(0)], prior)
+        return run
+    s = torch.where(ok, slots, cap).long()
+    if name == "hist_add":
+        amounts = args[1]
+
+        def run():
+            torch.zeros(cap + 1, dtype=torch.int32, device=dev).index_add_(0, s, amounts)
+        return run
+    rows_k = args[-2] ^ INT32_MIN
+    W = rows_k.shape[-1]
     idx = s[:, None].expand(-1, W)
 
-    def run():
-        count = torch.zeros(cap + 1, dtype=torch.int32, device=slots.device)
-        count.scatter_add_(0, s, amounts)
-        packed = torch.full((cap + 1, W), INT32_MIN, dtype=torch.int32,
-                            device=slots.device)
+    def run_max():
+        packed = torch.full((cap + 1, W), INT32_MIN, dtype=torch.int32, device=dev)
         packed.scatter_reduce_(0, idx, rows_k, "amax")
+    if name == "hist_max":
+        return run_max
+    amounts = args[1]                              # fold_count_max
 
+    def run():
+        torch.zeros(cap + 1, dtype=torch.int32, device=dev).scatter_add_(0, s, amounts)
+        run_max()
     return run
 
 
 def phase_timing(torch, report, captured, launches, errs):
     rows = []
-    for name, mod, source, replaces in KERNELS:
+    for name, mod, _, source, replaces in KERNELS:
         (args, kw), kern, plain = captured[name]
         ms = time_ms(torch, lambda: kern(*args, **kw))
         plain_ms = time_ms(torch, lambda: plain(*args, **kw), reps=5, warmup=1)
-        lib_ms = (time_ms(torch, library_fold(torch, args))
-                  if name == "fold_count_max" else None)
+        lib = library_call(torch, name, args)
+        lib_ms = time_ms(torch, lib) if lib is not None else None
         nbytes, nops = bound_work(torch, name, args, kw)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = nops / PEAK_OPS_PER_S * 1e3
         rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name], max_abs_err=errs[name], ms=ms,
+            launches=launches[REPORTED_PATH[name]][name],
+            max_abs_err=errs[name], ms=ms,
             plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
             library_ms=lib_ms, bytes=nbytes, operations=nops,

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.fold_scatter import ops as fs_ops
+from repro_torch.kernels.hist import ops as hist_ops
 from repro_torch.utils import INT32_MIN, MASK32, splitmix32, u32_bits, u32_key
 
 _CHK_SEED = 0x9E3779B9
@@ -46,10 +47,13 @@ def umax(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 class CountingSet:
     """Factory for counting-table state and its increment / merge ops.
 
-    Every increment goes through ``fold_count_max`` — the CUDA kernel
-    for tensors on the card, its plain PyTorch version on the CPU. The
-    ``backend`` and ``pallas_interpret`` fields are kept so configurations
-    compare field by field with the JAX package; they select nothing here.
+    ``backend`` picks the fold, as in the JAX package: ``"auto"`` and
+    ``"pallas"`` take the fused ``fold_count_max``, ``"scatter"`` the two
+    unfused scatters ``hist_add`` and ``hist_max``. The tables are bitwise
+    the same either way. Each is the CUDA kernel for tensors on the card
+    and its plain PyTorch version on the CPU. ``pallas_interpret`` is kept
+    so configurations compare field by field with the JAX package; it
+    selects nothing here.
     """
 
     capacity: int
@@ -70,9 +74,9 @@ class CountingSet:
 
     def increment(self, state: dict, keys: torch.Tensor, valid: torch.Tensor,
                   amount=1) -> dict:
-        """keys [B, K] int32, valid [B] bool: one fused scatter into fresh
-        tables (invalid rows go to slot -1, which the fold drops),
-        combined with the state (add; unsigned max)."""
+        """keys [B, K] int32, valid [B] bool: scatter into fresh tables
+        (invalid rows go to slot -1, which the fold drops), combined with
+        the state (add; unsigned max)."""
         cap = self.capacity
         mixed = _fold_keys(keys, (0, _CHK_SEED))
         slot = torch.where(valid, (mixed[0] % cap).to(torch.int32), -1)
@@ -82,7 +86,11 @@ class CountingSet:
         zero = torch.zeros((), dtype=torch.int32, device=keys.device)
         row = torch.where(valid[:, None], row, zero)
         amt = torch.where(valid, torch.full_like(slot, int(amount)), zero)
-        d_count, d_packed = fs_ops.fold_count_max(slot, amt, row, cap)
+        if self.backend == "scatter":
+            d_count = hist_ops.hist_add(slot, amt, cap)
+            d_packed = hist_ops.hist_max(slot, row, cap)
+        else:
+            d_count, d_packed = fs_ops.fold_count_max(slot, amt, row, cap)
         return dict(count=state["count"] + d_count,
                     packed=umax(state["packed"], d_packed))
 

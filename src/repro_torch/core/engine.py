@@ -19,14 +19,17 @@ kernel — and folds locally. The pull window of one requesting shard is
 folds it one requesting shard at a time, so its temporaries take 1/S of
 the whole window's memory.
 
+``pull_kernel="split"`` takes the pull lane's unfused form instead: the
+candidate keys are gathered into ``[B, L]`` arrays and lower-bounded in
+the pulled rows by the ``intersect`` kernel. Both forms give the same
+positions, so results and stats are the same.
+
 Kernel or plain: the device alone decides. On CUDA tensors the push and
-pull searches and the counting-set fold launch the hand-written kernels
+pull searches and the survey folds launch the hand-written kernels
 (``repro_torch/csrc``); on CPU tensors they run the kernels' plain PyTorch
-versions. ``EngineConfig.use_pallas``, ``pallas_interpret`` and
-``pull_kernel`` are kept so configurations compare field by field with the
-JAX package, whose ``plan_engine`` defaults to ``use_pallas=False``; they
-choose nothing here, except that ``pull_kernel="split"`` is refused on
-CUDA (that kernel is not ported yet).
+versions. ``EngineConfig.use_pallas`` and ``pallas_interpret`` are kept so
+configurations compare field by field with the JAX package, whose
+``plan_engine`` defaults to ``use_pallas=False``; they choose nothing here.
 
 Stats are float32 sums, as in the JAX package: each superstep adds one
 exact integer per stat, in the same order, so the values agree bit for bit
@@ -47,7 +50,8 @@ from repro_torch.comm.exchange import Exchange, make_exchange
 from repro_torch.core.dodgr import ShardedDODGr, meta_widths
 from repro_torch.core.surveys import (MetaSpec, Survey, TriangleBatch,
                                       expand_lanes, narrow_lanes,
-                                      project_lanes)
+                                      project_lanes, tree_map)
+from repro_torch.kernels.intersect import ops as is_ops
 from repro_torch.kernels.wedge_check import ops as wc_ops
 from repro_torch.kernels.wedge_intersect import ops as wi_ops
 
@@ -76,8 +80,8 @@ class EngineConfig:
     unroll_steps: bool = False    # kept for parity; the loops are Python loops
     use_pallas: bool = False      # kept for parity; the device decides
     pallas_interpret: bool = True  # kept for parity; the device decides
-    pull_kernel: str = "auto"     # "auto"/"fused": wedge_intersect; "split"
-    #                               is refused on CUDA (not ported yet)
+    pull_kernel: str = "auto"     # "auto"/"fused": wedge_intersect; "split":
+    #                               gathered candidates + intersect
     shard_axis: str | None = None  # kept for parity (mesh sharding hint)
     sample_p: float = 1.0         # DOULION edge-keep probability
     sample_seed: int = 0
@@ -392,11 +396,37 @@ def _pull_window(gr: ShardedDODGr, ps: dict, t: int, cfg: EngineConfig,
     return e, lp, ridx, cand_ok, overflow
 
 
+def _split_intersect(gr: ShardedDODGr, s: int, e: torch.Tensor, rp: dict,
+                     L: int, Lr: int):
+    """The unfused pull-lane search: gather shard ``s``'s candidate keys at
+    ``clamp(e + 1 + k, 0, E - 1)`` into [B, L] arrays, pad the ``Lr``-wide
+    reply rows to ``L`` with the owner's sentinels (the padding never
+    crosses the wire) and lower-bound the candidates with one ``intersect``
+    launch. Returns ``(pos, ci)``, both [B, L], as ``wedge_intersect``
+    does."""
+    k = torch.arange(L, dtype=torch.int32, device=e.device)
+    r_pos = (e.to(torch.int32)[..., None] + 1 + k).clamp(0, gr.e_cap - 1).long()
+    cd, ch, ci = gr.nbr_d[s][r_pos], gr.nbr_h[s][r_pos], gr.nbr[s][r_pos]
+
+    def row(x, fill):
+        x = x.reshape(-1, Lr)
+        if Lr < L:
+            x = torch.nn.functional.pad(x, (0, L - Lr), value=fill)
+        return x
+
+    pos = is_ops.intersect(row(rp["r_d"], BIG_I32), row(rp["r_h"], U32_ONES),
+                           row(rp["r_nbr"], BIG_I32), rp["ln"].reshape(-1),
+                           cd.reshape(-1, L), ch.reshape(-1, L),
+                           ci.reshape(-1, L))
+    return pos, ci.reshape(-1, L)
+
+
 def _pull_compute(gr: ShardedDODGr, ps: dict, t: int, cfg: EngineConfig,
                   spec: MetaSpec, exch: Exchange, rep: dict, s: int):
     """The fold half of one pull superstep for requesting shard ``s``:
     intersect its local suffixes against the pulled rows ``rep`` (one
-    ``wedge_intersect`` launch) and emit the shard's TriangleBatch of
+    ``wedge_intersect`` launch, or one ``intersect`` launch for
+    ``pull_kernel="split"``) and emit the shard's TriangleBatch of
     ``S·pull_edge_cap·d_plus_max`` lanes. Returns ``(tri, checked,
     overflow)``."""
     S, E = gr.S, gr.e_cap
@@ -405,10 +435,13 @@ def _pull_compute(gr: ShardedDODGr, ps: dict, t: int, cfg: EngineConfig,
     Lr = cfg.pull_row_cap if cfg.pull_row_cap else L
     e, lp, ridx, cand_ok, overflow = _pull_window(gr, ps, t, cfg, exch, s)
     rp = {key: v[s][ridx] for key, v in rep.items()}     # [S, ecap, ...]
-    pos, ci = wi_ops.wedge_intersect(
-        gr.nbr_d[s], gr.nbr_h[s], gr.nbr[s], e.to(torch.int32).reshape(-1),
-        rp["r_d"].reshape(-1, Lr), rp["r_h"].reshape(-1, Lr),
-        rp["r_nbr"].reshape(-1, Lr), rp["ln"].reshape(-1), L=L)
+    if cfg.pull_kernel == "split":
+        pos, ci = _split_intersect(gr, s, e, rp, L, Lr)
+    else:
+        pos, ci = wi_ops.wedge_intersect(
+            gr.nbr_d[s], gr.nbr_h[s], gr.nbr[s], e.to(torch.int32).reshape(-1),
+            rp["r_d"].reshape(-1, Lr), rp["r_h"].reshape(-1, Lr),
+            rp["r_nbr"].reshape(-1, Lr), rp["ln"].reshape(-1), L=L)
     pos = pos.view(S, ecap, L)
     ci = ci.view(S, ecap, L)
     pos_c = pos.clamp(0, Lr - 1).long()
@@ -506,10 +539,6 @@ def _survey_body(gr: ShardedDODGr, survey: Survey, cfg: EngineConfig,
     if cfg.n_hub_steps > 0 and gr.n_hubs > 0:
         raise NotImplementedError(
             f"the hub lane is not ported yet ({_ROADMAP}, Queue 1 item 6)")
-    if dev.type == "cuda" and cfg.mode == "pushpull" and cfg.pull_kernel == "split":
-        raise NotImplementedError(
-            "pull_kernel='split' needs the intersect kernel, which is not "
-            f"ported yet ({_ROADMAP}, Queue 2); use 'auto' or 'fused'")
     states = [survey.init(dev) for _ in range(S)]
 
     mw = cfg.meta_widths
@@ -569,9 +598,10 @@ def _survey_body(gr: ShardedDODGr, survey: Survey, cfg: EngineConfig,
     return states, stats.result()
 
 
-def stack_states(states: list) -> dict:
-    """Per-shard state dicts → one dict of [S, ...] tensors."""
-    return {k: torch.stack([st[k] for st in states]) for k in states[0]}
+def stack_states(states: list):
+    """Per-shard states → one state of [S, ...] tensors, of the same
+    structure: a tensor, a dict or a tuple of states (a bundle's)."""
+    return tree_map(lambda *xs: torch.stack(xs), *states)
 
 
 def make_survey_fn(survey: Survey, cfg: EngineConfig, mesh=None):

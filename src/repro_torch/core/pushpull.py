@@ -23,7 +23,7 @@ from repro_torch.comm.exchange import TRANSPORTS
 from repro_torch.core.dodgr import (delta_gen_mask, hub_widths, meta_widths,
                                     orient_edges, sparsify_edges)
 from repro_torch.core.engine import EngineConfig
-from repro_torch.core.surveys import MetaSpec, Survey
+from repro_torch.core.surveys import MetaSpec, Survey, SurveyBundle
 from repro_torch.graphs.csr import HostGraph
 from repro_torch.utils import bucket_cap, bucket_caps, bucket_floor, ceil_div
 
@@ -249,20 +249,30 @@ def plan_shape_signature(cfg: EngineConfig) -> tuple:
 
 # The JAX package classifies each survey's fold algebra by tracing it
 # (repro.analysis.contracts). Until analysis/ is ported, the port stamps
-# the verdict from this table for the surveys it has; the tests hold the
-# table equal to the reference's verdicts.
+# the verdict of each built-in from this table; the tests hold the table
+# equal to the reference's verdicts.
 _DETERMINISM = {
     "TriangleCount": "bitwise",
     "DegreeTriples": "bitwise",
+    "LocalVertexCount": "bitwise",
+    "ClosureTime": "bitwise",
+    "MaxEdgeLabelDist": "bitwise",
+    "LabelTripleSet": "bitwise",
+    "Enumerate": "bitwise",
+    "TopKWeightedTriangles": "bitwise",
 }
 
 
 def _determinism_of(survey, widths: tuple) -> str:
     """Fold-algebra verdict for the plan's survey: ``"bitwise"``,
     ``"order_sensitive"`` or ``"unknown"`` (a bare MetaSpec, or a survey
-    the table does not know)."""
+    the table does not know). A bundle is bitwise when every member is,
+    and otherwise takes the first verdict that is not."""
     if not isinstance(survey, Survey):
         return "unknown"
+    if isinstance(survey, SurveyBundle):
+        verdicts = [_determinism_of(m, widths) for m in survey.surveys]
+        return next((v for v in verdicts if v != "bitwise"), "bitwise")
     return _DETERMINISM.get(type(survey).__name__, "unknown")
 
 

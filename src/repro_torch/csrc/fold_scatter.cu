@@ -1,4 +1,5 @@
-// fold_count_max: one pass of count scatter-add and packed-row scatter-max.
+// fold_count_max: one pass of count scatter-add and packed-row scatter-max;
+// ring_set: last-writer-wins scatter-set into a carried table (at the end).
 //
 // Replaces src/repro/kernels/fold_scatter/fold_scatter.py::
 // fold_count_max_pallas (the Pallas TPU kernel of the counting set, called
@@ -116,5 +117,70 @@ extern "C" int tripoll_fold_count_max(const void* slots, const void* amounts,
         (const int*)slots, (const int*)amounts, (const unsigned*)rows, B, W,
         cap, (int*)count, (unsigned*)packed);
   }
+  return (int)cudaGetLastError();
+}
+
+// ring_set: deterministic last-writer-wins scatter-set of [B, 3] int32 rows
+// into a copy of the carried [cap, 3] table.
+//
+// Replaces src/repro/kernels/fold_scatter/fold_scatter.py::ring_set_pallas
+// (the Pallas TPU kernel of Enumerate's ring buffer, called from
+// core/surveys.py::Enumerate.update).
+//
+// For each slot in [0, cap), the row of the highest batch index that
+// targets it wins; slots with no writer keep the prior row; slots outside
+// [0, cap) are dropped. The TPU kernel took the max batch index over a
+// one-hot [batch tile, table tile] match and let later grid steps
+// overwrite earlier ones. Here pass 1 takes atomicMax of the batch index
+// into a [cap] table initialised to -1 (by the wrapper), and pass 2 lets
+// the one element whose index equals its slot's winner write its row into
+// the output, which the wrapper filled with the prior table. Batch indices
+// are unique, so each slot has at most one writer in pass 2 and the result
+// is deterministic.
+//
+// What bounds it on an H100: the bytes of the batch — 4 * B slots read
+// twice (once a pass) and 12 bytes of row for each winner — at 3.35 TB/s.
+// Enumerate routes its invalid lanes (most of a pull window) to slot cap,
+// so they cost one coalesced read a pass and nothing else.
+
+__global__ void ring_set_winner(const int* __restrict__ slots, long long B,
+                                int cap, int* __restrict__ win) {
+  for (long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x; b < B;
+       b += (long long)gridDim.x * blockDim.x) {
+    const int s = slots[b];
+    if (s >= 0 && s < cap) atomicMax(win + s, (int)b);
+  }
+}
+
+__global__ void ring_set_write(const int* __restrict__ slots,
+                               const int* __restrict__ rows, long long B,
+                               int cap, const int* __restrict__ win,
+                               int* __restrict__ out) {
+  for (long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x; b < B;
+       b += (long long)gridDim.x * blockDim.x) {
+    const int s = slots[b];
+    if (s < 0 || s >= cap || win[s] != (int)b) continue;
+    const int* row = rows + 3 * b;
+    int* dst = out + 3 * (long long)s;
+    dst[0] = row[0];
+    dst[1] = row[1];
+    dst[2] = row[2];
+  }
+}
+
+extern "C" int tripoll_ring_set(const void* slots, const void* rows,
+                                long long B, int cap, void* win, void* out,
+                                void* stream) {
+  const int threads = 512;
+  long long blocks = (B + threads - 1) / threads;
+  const long long max_blocks = 132LL * 32;
+  if (blocks > max_blocks) blocks = max_blocks;
+  ring_set_winner<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const int*)slots, B, cap, (int*)win);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ring_set_write<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const int*)slots, (const int*)rows, B, cap, (const int*)win,
+      (int*)out);
   return (int)cudaGetLastError();
 }

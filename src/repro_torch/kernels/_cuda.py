@@ -22,7 +22,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("wedge_check", "wedge_intersect", "fold_scatter")
+SOURCES = ("wedge_check", "wedge_intersect", "fold_scatter", "intersect",
+           "hist")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,10 +1,11 @@
-"""fold_count_max: fused count scatter-add + packed-row scatter-max.
+"""fold_count_max (fused count scatter-add + packed-row scatter-max) and
+ring_set (last-writer-wins scatter-set into a carried table).
 
-The wrapper launches the CUDA kernel (``csrc/fold_scatter.cu``) for CUDA
-tensors and takes the plain PyTorch version for CPU tensors; the device
-alone decides. It replaces the JAX package's
-``kernels/fold_scatter/fold_scatter.py::fold_count_max_pallas``.
-(``ring_set``, the other kernel of that file, is not ported yet.)
+Each wrapper launches its CUDA kernel (``csrc/fold_scatter.cu``) for CUDA
+tensors and takes its plain PyTorch version for CPU tensors; the device
+alone decides. They replace the JAX package's
+``kernels/fold_scatter/fold_scatter.py::fold_count_max_pallas`` and
+``ring_set_pallas``.
 """
 from __future__ import annotations
 
@@ -13,24 +14,20 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _cuda
-from repro_torch.utils import INT32_MIN, u32_key
+from repro_torch.kernels.hist.ops import hist_add_plain, hist_max_plain
 
-launches = 0   # kernel launches made by this wrapper (not by the plain path)
+launches = 0            # fold_count_max kernel launches (not the plain path)
+ring_set_launches = 0   # ring_set kernel launches (not the plain path)
 
 
 def fold_count_max_plain(slots, amounts, rows, capacity: int):
     """Plain PyTorch version: ``slots``, ``amounts`` [B] int32; ``rows``
     [B, W] uint32 bits in int32 → fresh ``(count [capacity] int32, packed
     [capacity, W] uint32 bits)``. Slots outside [0, capacity) are dropped;
-    the max compares unsigned (sign-flipped)."""
-    W = rows.shape[-1]
-    s = torch.where((slots < 0) | (slots >= capacity), capacity, slots).long()
-    count = torch.zeros(capacity + 1, dtype=torch.int32, device=slots.device)
-    count.index_add_(0, s, amounts)
-    packed = torch.full((capacity + 1, W), INT32_MIN, dtype=torch.int32,
-                        device=slots.device)
-    packed.scatter_reduce_(0, s[:, None].expand(-1, W), u32_key(rows), "amax")
-    return count[:capacity], u32_key(packed[:capacity])
+    the max compares unsigned. It is the two unfused scatters, which is
+    what the fused kernel must equal."""
+    return (hist_add_plain(slots, amounts, capacity),
+            hist_max_plain(slots, rows, capacity))
 
 
 def fold_count_max(slots, amounts, rows, capacity: int):
@@ -65,3 +62,57 @@ def fold_count_max(slots, amounts, rows, capacity: int):
     launches += 1
     _cuda.raise_on_error("fold_count_max", err)
     return count, packed
+
+
+def ring_set_plain(prior, slots, rows, capacity: int):
+    """Plain PyTorch version: ``prior`` [capacity, 3]; ``slots`` [B];
+    ``rows`` [B, 3]; all int32 → a fresh [capacity, 3] table. Each slot in
+    [0, capacity) holds the row of the highest batch index that targets
+    it; slots no element targets keep ``prior``; other slots are
+    dropped."""
+    B = slots.shape[0]
+    if B == 0 or capacity == 0:
+        return prior.clone()
+    gidx = torch.arange(B, dtype=torch.int64, device=slots.device)
+    ok = (slots >= 0) & (slots < capacity)
+    # a dropped element offers -1 (the identity of the max) at a slot of
+    # its own, so that no one slot takes every dropped element's update
+    s = torch.where(ok, slots.long(), gidx % capacity)
+    win = torch.full((capacity,), -1, dtype=torch.int64, device=slots.device)
+    win.scatter_reduce_(0, s, torch.where(ok, gidx, -1), "amax")
+    return torch.where((win >= 0)[:, None], rows[win.clamp_min(0)], prior)
+
+
+def ring_set(prior, slots, rows, capacity: int):
+    """Last-writer-wins scatter-set of ``rows`` at ``slots`` into a copy of
+    the carried ``prior`` table: the highest batch index wins a contested
+    slot (deterministic, unlike a plain scatter's ties); out-of-range
+    slots (Enumerate's invalid lanes are ``capacity``) are dropped.
+    Shapes: ``prior`` [capacity, 3]; ``slots`` [B]; ``rows`` [B, 3]; all
+    int32, B < 2³¹. Returns [capacity, 3]."""
+    if slots.device.type == "cpu":
+        return ring_set_plain(prior, slots, rows, capacity)
+    if slots.device.type != "cuda":
+        raise ValueError(f"ring_set: unsupported device {slots.device}")
+    global ring_set_launches
+    dev = slots.device
+    B = slots.shape[0]
+    for name, t, shape in (("prior", prior, (capacity, 3)),
+                           ("slots", slots, (B,)), ("rows", rows, (B, 3))):
+        _cuda.check(f"ring_set {name}", t, torch.int32, shape, dev)
+    if B >= 2**31:
+        raise ValueError(f"ring_set: batch of {B} exceeds int32 indices")
+    out = prior.clone()
+    if B == 0 or capacity == 0:
+        return out
+    win = torch.full((capacity,), -1, dtype=torch.int32, device=dev)
+    fn = _cuda.library("fold_scatter").tripoll_ring_set
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_int]
+                   + [ctypes.c_void_p] * 3)
+    P = _cuda.ptr
+    err = fn(P(slots), P(rows), B, capacity, P(win), P(out),
+             _cuda.stream_handle(dev))
+    ring_set_launches += 1
+    _cuda.raise_on_error("ring_set", err)
+    return out

@@ -1,4 +1,5 @@
-"""Exact host oracle for fold_count_max: a Python loop over the batch."""
+"""Exact host oracles for fold_count_max and ring_set: Python loops over
+the batch."""
 from __future__ import annotations
 
 import numpy as np
@@ -15,3 +16,15 @@ def fold_count_max_numpy(slots, amounts, rows, capacity: int):
             count[s] += int(amounts[b])
             packed[s] = np.maximum(packed[s], rows[b])
     return count.astype(np.int32), packed
+
+
+def ring_set_numpy(prior, slots, rows, capacity: int):
+    """prior [capacity, 3]; slots [B]; rows [B, 3] → [capacity, 3]: the
+    batch written in order, so the highest batch index wins a slot;
+    out-of-range slots dropped."""
+    out = np.array(prior, np.int32, copy=True)
+    rows = np.asarray(rows, np.int32)
+    for b, s in enumerate(np.asarray(slots).tolist()):
+        if 0 <= s < capacity:
+            out[s] = rows[b]
+    return out
