@@ -11,7 +11,12 @@ Phases (every failure ends the run with a non-zero exit):
 2. ``kernels`` — each kernel equals its plain PyTorch version on the card,
    on random inputs and edge cases (hashes ≥ 2³¹, empty and full rows,
    slots -1 and ≥ cap, contested slots, batches with no valid entry or
-   that fill no tile, pulled rows narrower than L).
+   that fill no tile, pulled rows narrower than L). wedge_intersect also
+   on CSR-shaped keys (sorted vertex rows back to back, so candidate
+   windows descend; repeated keys and (d, h) ties; windows clamped at both
+   ends; L below 32); ring_set also with B not a multiple of 4, slot views
+   whose offset breaks 16-byte alignment, every lane on one slot, a ring
+   that wraps, capacity 1, and its rows as [B, 3] and as columns.
 3. ``small``   — karate, clique(8) and rmat(9, 16) with seeded metadata and
    temporal_social(1500, 30000, seed=1), with S ∈ {1, 4}, push and
    push-pull, dense and ragged: a bundle of all eight built-in surveys
@@ -51,7 +56,9 @@ Phases (every failure ends the run with a non-zero exit):
    equal ``fold_count_max``.
 5. Timing of each kernel at those captured shapes (median of CUDA-event
    times), its plain version's, its bound, a library call's where one
-   computes the same function, and one ``kernels`` JSON line.
+   computes the same function, and one ``kernels`` JSON line; on a line
+   before it, wedge_intersect at the fullest and at the last pull
+   superstep.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Details go to ``build/chip_smoke.json``. The script imports nothing
@@ -295,11 +302,29 @@ def fold_inputs(rng, B, W, cap, dev, torch):
     return _tensors(torch, dev, slots, amounts, _u32_bits(rows))
 
 
+def csr_wedge_intersect_inputs(rng, E, B, Lr, L, dev, torch):
+    """Keys laid out as a shard's CSR slots (sorted vertex rows back to
+    back, repeated keys), so candidate windows descend at row boundaries;
+    ln 0 and Lr; e clamped at both ends."""
+    from repro_torch.kernels.wedge_intersect.ref import csr_shaped_inputs
+
+    kd, kh, ki, e, rd, rh, ri, ln = csr_shaped_inputs(rng, E, B, Lr, L)
+    return _tensors(torch, dev, kd, _u32_bits(kh), ki, e, rd, _u32_bits(rh),
+                    ri, ln)
+
+
 def ring_inputs(rng, B, cap, case, dev, torch):
-    """Contested slots (a quarter of the table), slots -1 and ≥ cap mixed
-    in, or a batch with no valid entry."""
+    """Contested slots (a quarter of the table), every lane on one slot,
+    a ring that wraps (more in-range lanes than cap, every fifth lane
+    dropped at cap, as Enumerate's invalid lanes are), slots -1 and ≥ cap
+    mixed in, or a batch with no valid entry."""
     if case == "contested":
         slots = rng.integers(0, max(1, cap // 4), B)
+    elif case == "one_slot":
+        slots = np.full(B, cap // 2)
+    elif case == "wrap":
+        slots = np.arange(B) % cap
+        slots[::5] = cap
     elif case == "none_valid":
         slots = np.where(rng.random(B) < 0.5, -1, cap + rng.integers(0, 3, B))
     else:
@@ -339,9 +364,22 @@ def phase_kernels(torch, report, dev):
         args = wedge_check_inputs(rng, S, E, B, dev, torch)
         equal_outputs(wc.wedge_check(*args), wc.wedge_check_plain(*args), torch)
         cases += 1
-    for E, B, Lr, L in ((16, 5, 4, 9), (500, 300, 37, 50), (800, 257, 64, 64),
-                        (6000, 20, 5000, 96)):
-        args = wedge_intersect_inputs(rng, E, B, Lr, L, dev, torch)
+    # globally sorted keys, then CSR-shaped ones (L below 32 and not a
+    # multiple of 4, rows narrower and wider than L, more edges than the
+    # persistent grid has warps); Lr = 5000 rows exceed eight warps'
+    # shared memory: the device-memory path
+    for make, E, B, Lr, L in (
+            (wedge_intersect_inputs, 16, 5, 4, 9),
+            (wedge_intersect_inputs, 500, 300, 37, 50),
+            (wedge_intersect_inputs, 800, 257, 64, 64),
+            (wedge_intersect_inputs, 6000, 20, 5000, 96),
+            (csr_wedge_intersect_inputs, 40, 9, 6, 7),
+            (csr_wedge_intersect_inputs, 2000, 300, 64, 29),
+            (csr_wedge_intersect_inputs, 5000, 200, 130, 133),
+            (csr_wedge_intersect_inputs, 3000, 2500, 33, 45),
+            (csr_wedge_intersect_inputs, 20000, 4000, 421, 421),
+            (csr_wedge_intersect_inputs, 6000, 20, 5000, 96)):
+        args = make(rng, E, B, Lr, L, dev, torch)
         equal_outputs(wi.wedge_intersect(*args, L=L),
                       wi.wedge_intersect_plain(*args, L=L), torch)
         cases += 1
@@ -364,12 +402,22 @@ def phase_kernels(torch, report, dev):
         equal_outputs(hist.hist_add(slots, amounts, cap),
                       hist.hist_add_plain(slots, amounts, cap), torch)
         cases += 1
+    # rows as [B, 3], as its strided columns and as separate columns; the
+    # slots also as views whose storage offset breaks 16-byte alignment
     for B, cap, case in ((3, 8, "mixed"), (5000, 64, "contested"),
                          (300000, 2**20, "mixed"), (1000, 40, "none_valid"),
-                         (100000, 1000, "contested")):
-        args = ring_inputs(rng, B, cap, case, dev, torch)
-        equal_outputs(fs.ring_set(*args, cap), fs.ring_set_plain(*args, cap),
-                      torch)
+                         (100000, 1000, "contested"), (1003, 64, "mixed"),
+                         (100001, 37, "one_slot"), (5002, 64, "wrap"),
+                         (777, 1, "mixed"), (4099, 1, "wrap")):
+        prior, slots, rows = ring_inputs(rng, B, cap, case, dev, torch)
+        want = fs.ring_set_plain(prior, slots, rows, cap)
+        cols = tuple(c.contiguous() for c in rows.unbind(1))
+        equal_outputs(fs.ring_set_plain(prior, slots, cols, cap), want, torch)
+        for r in (rows, rows.unbind(1), cols):
+            equal_outputs(fs.ring_set(prior, slots, r, cap), want, torch)
+        for off in (1, 2, 3):
+            view = torch.cat([slots.new_full((off,), -1), slots])[off:]
+            equal_outputs(fs.ring_set(prior, view, cols, cap), want, torch)
         cases += 1
     # L = 5000 rows exceed 48 KB of shared memory: the device-memory search
     for B, L in ((4, 16), (300, 37), (1000, 421), (7, 5000)):
@@ -544,27 +592,30 @@ def phase_small(torch, report, dev):
 
 
 class Recorder:
-    """Wraps a kernel wrapper to keep the operands of its first call and of
+    """Wraps a kernel wrapper to keep the operands of its first call, of
     its largest call (by operand size; the first of equal sizes, so the
-    first and fullest pull superstep where every call has one size) — the
-    inputs of one superstep of the run. The wrapped function still counts
-    its launches. It pins those operands, so it wraps no run whose peak
-    memory is read."""
+    first and fullest pull superstep where every call has one size) and
+    of its last call — the inputs of one superstep of the run. The wrapped
+    function still counts its launches. It pins those operands, so it
+    wraps no run whose peak memory is read."""
 
     def __init__(self, module, name, torch):
         self.module, self.name, self.torch = module, name, torch
         self.fn = getattr(module, name)
-        self.first = self.largest = None
+        self.first = self.largest = self.last = None
         setattr(module, name, self)
 
     def size(self, args) -> int:
-        return sum(a.numel() for a in args if isinstance(a, self.torch.Tensor))
+        return sum(self.size(a) if isinstance(a, tuple) else a.numel()
+                   for a in args
+                   if isinstance(a, (tuple, self.torch.Tensor)))
 
     def __call__(self, *args, **kw):
         if self.first is None and args[0].numel():
             self.first = (args, kw)
         if self.largest is None or self.size(args) > self.size(self.largest[0]):
             self.largest = (args, kw)
+        self.last = (args, kw)
         return self.fn(*args, **kw)
 
     def restore(self):
@@ -837,15 +888,28 @@ def phase_full(torch, report, scale, dev):
         equal_outputs((hist.hist_add(args[0], args[1], args[3]),
                        hist.hist_max(args[0], args[2], args[3])),
                       fs.fold_count_max(*args), torch)
+    # the last pull superstep's window (sparser than the fullest), timed
+    # beside it
+    last = recs[1].last
+    equal_outputs(wi.wedge_intersect(*last[0], **last[1]),
+                  wi.wedge_intersect_plain(*last[0], **last[1]), torch)
+    captured["wedge_intersect_last"] = (last, wi.wedge_intersect,
+                                        wi.wedge_intersect_plain)
     sync(torch, dev)
     log("full: each kernel == its plain version on captured superstep inputs; "
         "hist_add + hist_max == fold_count_max")
     return captured, launches, errs
 
 
+# the port's kernels as the profiler names them
+PORT_KERNEL_NAMES = ("wedge_check", "wedge_intersect", "fold_count_max",
+                     "ring_set", "intersect", "hist_add", "hist_max")
+
+
 def profile_run(torch, label, fn, top=12) -> dict:
     """Device time by kernel over one run (torch.profiler, CUDA activity
-    only): busy time, wall time, idle share, the heaviest kernels."""
+    only): busy time, wall time, idle share, the heaviest kernels, and
+    each of the port's kernels wherever it ranks."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -865,11 +929,18 @@ def profile_run(torch, label, fn, top=12) -> dict:
     out = dict(label=label, wall_s=wall, device_busy_s=busy,
                idle_share=(1 - busy / wall) if busy else None,
                top=[dict(kernel=k[:120], ms=us / 1e3, count=c)
-                    for us, c, k in rows[:top]])
+                    for us, c, k in rows[:top]],
+               port=[dict(kernel=k[:120], ms=us / 1e3, count=c,
+                          share=us / 1e6 / busy)
+                     for us, c, k in rows
+                     if any(n in k for n in PORT_KERNEL_NAMES)])
     log(f"profile {label}: wall {wall:.2f} s, device busy "
         f"{busy:.2f} s, idle share {out['idle_share']}")
     for r in out["top"]:
         log(f"  {r['ms']:10.1f} ms  x{r['count']:<7} {r['kernel']}")
+    for r in out["port"]:
+        log(f"  port kernel {r['ms']:10.1f} ms  x{r['count']:<7} "
+            f"{100 * r['share']:.2f}% of busy  {r['kernel']}")
     return out
 
 
@@ -969,7 +1040,7 @@ def bound_work(torch, name, args, kw) -> tuple[int, int]:
         nbytes = 4 * B + 12 * B * L + 12 * int(seen.sum()) + 4 * B * L
         return nbytes, OPS_PER_PROBE * probes
     if name == "ring_set":
-        prior, slots, rows, cap = args
+        prior, slots, _, cap = args
         B = slots.shape[0]
         s = slots[(slots >= 0) & (slots < cap)]
         winners = int(torch.unique(s).numel())
@@ -1003,6 +1074,8 @@ def library_call(torch, name, args):
         # dropped elements offer -1 at slots of their own, so that no one
         # slot serialises every dropped element's atomic
         prior, _, rows, _ = args
+        if isinstance(rows, tuple):                # Enumerate's columns
+            rows = torch.stack(rows, -1)
         gidx = torch.arange(slots.shape[0], dtype=torch.int64, device=dev)
         s = torch.where(ok, slots.long(), gidx % cap)
         v = torch.where(ok, gidx, -1)
@@ -1036,6 +1109,12 @@ def library_call(torch, name, args):
     return run
 
 
+def _shape(a):
+    if isinstance(a, tuple):
+        return [_shape(x) for x in a]
+    return list(a.shape) if hasattr(a, "shape") else a
+
+
 def phase_timing(torch, report, captured, launches, errs):
     rows = []
     for name, mod, _, source, replaces in KERNELS:
@@ -1055,11 +1134,20 @@ def phase_timing(torch, report, captured, launches, errs):
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
             library_ms=lib_ms, bytes=nbytes, operations=nops,
             bytes_ms=bytes_ms, ops_ms=ops_ms,
-            shapes=[list(a.shape) if hasattr(a, "shape") else a for a in args]))
+            shapes=[_shape(a) for a in args]))
         log(f"time {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
             f"{rows[-1]['bound_ms']:.5f} ms by {rows[-1]['bound_by']}: bytes "
             f"{bytes_ms:.5f} ms, operations {ops_ms:.5f} ms; library {lib_ms}) "
             f"at {rows[-1]['shapes']}")
+    (args, kw), kern, _ = captured["wedge_intersect_last"]
+    last_ms = report["wedge_intersect_last_ms"] = time_ms(
+        torch, lambda: kern(*args, **kw))
+    fullest = next(r for r in rows if r["name"] == "wedge_intersect")
+    full_ln = captured["wedge_intersect"][0][0][7]
+    log(f"time wedge_intersect: fullest window {fullest['ms']:.4f} ms "
+        f"({int((full_ln > 0).sum())} of {full_ln.numel()} pulled rows "
+        f"non-empty), last pull superstep {last_ms:.4f} ms "
+        f"({int((args[7] > 0).sum())} non-empty)")
     report["kernels"] = rows
     return rows
 

@@ -564,10 +564,10 @@ class Enumerate(Survey):
         offs = torch.cumsum(amt, 0, dtype=torch.int32) - amt + state["n"]
         # invalid lanes go to slot ``capacity``, which ring_set drops; it
         # reads no row of a dropped lane, so the rows need no zeroing (the
-        # reference zeroes them for its one-hot sum)
+        # reference zeroes them for its one-hot sum), and it reads the
+        # winners' rows from the columns where they lie, unstacked
         idx = torch.where(tri.valid, offs % cap, cap)
-        rows = torch.stack([tri.p, tri.q, tri.r], -1)
-        tris = fs_ops.ring_set(state["tris"], idx, rows, cap)
+        tris = fs_ops.ring_set(state["tris"], idx, (tri.p, tri.q, tri.r), cap)
         return dict(tris=tris, n=state["n"] + amt.sum(dtype=torch.int32))
 
     def merge(self, stacked):

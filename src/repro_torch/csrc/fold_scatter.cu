@@ -29,6 +29,7 @@
 // Built by repro_torch/kernels/_cuda.py with nvcc for sm_90a; C interface
 // for ctypes. Returns cudaGetLastError() of the launch.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 __global__ void fold_count_max_global(const int* __restrict__ slots,
                                       const int* __restrict__ amounts,
@@ -120,8 +121,8 @@ extern "C" int tripoll_fold_count_max(const void* slots, const void* amounts,
   return (int)cudaGetLastError();
 }
 
-// ring_set: deterministic last-writer-wins scatter-set of [B, 3] int32 rows
-// into a copy of the carried [cap, 3] table.
+// ring_set: deterministic last-writer-wins scatter-set of int32 rows into
+// a copy of the carried [cap, 3] table.
 //
 // Replaces src/repro/kernels/fold_scatter/fold_scatter.py::ring_set_pallas
 // (the Pallas TPU kernel of Enumerate's ring buffer, called from
@@ -131,56 +132,110 @@ extern "C" int tripoll_fold_count_max(const void* slots, const void* amounts,
 // targets it wins; slots with no writer keep the prior row; slots outside
 // [0, cap) are dropped. The TPU kernel took the max batch index over a
 // one-hot [batch tile, table tile] match and let later grid steps
-// overwrite earlier ones. Here pass 1 takes atomicMax of the batch index
-// into a [cap] table initialised to -1 (by the wrapper), and pass 2 lets
-// the one element whose index equals its slot's winner write its row into
-// the output, which the wrapper filled with the prior table. Batch indices
-// are unique, so each slot has at most one writer in pass 2 and the result
-// is deterministic.
+// overwrite earlier ones. Here the winner is explicit:
+// - pass 1, over the batch: atomicMax of the batch index into win [cap],
+//   which the launcher sets to -1 on the stream;
+// - pass 2, over the table: out[s] = win[s] >= 0 ? row(win[s]) : prior[s],
+//   the plain version's torch.where, one thread per output word.
+// The rows are read where they lie, through three column pointers and
+// element strides: Enumerate passes its batch's p, q and r columns, so no
+// [B, 3] copy is made.
 //
-// What bounds it on an H100: the bytes of the batch — 4 * B slots read
-// twice (once a pass) and 12 bytes of row for each winner — at 3.35 TB/s.
-// Enumerate routes its invalid lanes (most of a pull window) to slot cap,
-// so they cost one coalesced read a pass and nothing else.
+// What bounds it on an H100: the 4 * B bytes of slots (402.6 MB in a
+// scale-18 pull window, where Enumerate sends almost every lane to the
+// dropped slot cap), then the table in and out and the winners' rows, at
+// 3.35 TB/s. Pass 1 reads the slots once, as 16-byte streaming loads (a
+// scalar head where the view's offset breaks the alignment, a scalar
+// tail); a warp whose 128 slots are all out of range skips the atomics
+// on a ballot. Pass 2 touches only the table. A first design read the
+// slots twice (pass 2 over the batch) behind a clone and a fill: 2.9x the
+// bound.
+
+__device__ __forceinline__ void ring_claim(int s, int cap, int b,
+                                           int* __restrict__ win) {
+  if ((unsigned)s < (unsigned)cap) atomicMax(win + s, b);
+}
 
 __global__ void ring_set_winner(const int* __restrict__ slots, long long B,
                                 int cap, int* __restrict__ win) {
-  for (long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x; b < B;
-       b += (long long)gridDim.x * blockDim.x) {
-    const int s = slots[b];
-    if (s >= 0 && s < cap) atomicMax(win + s, (int)b);
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long nthreads = (long long)gridDim.x * blockDim.x;
+  const int a = (int)(((uintptr_t)slots >> 2) & 3);
+  const long long to_quad = (4 - a) & 3;
+  const long long head = to_quad < B ? to_quad : B;
+  const long long nvec = (B - head) >> 2;
+  const long long tail = head + 4 * nvec;
+  if (tid < head) ring_claim(slots[tid], cap, (int)tid, win);
+  if (tail + tid < B) ring_claim(slots[tail + tid], cap, (int)(tail + tid), win);
+  const int4* sv = reinterpret_cast<const int4*>(slots + head);
+  // the trip count is the warp's, so the ballot sees every lane
+  for (long long q = tid; q - (threadIdx.x & 31) < nvec; q += nthreads) {
+    int4 v = make_int4(-1, -1, -1, -1);
+    if (q < nvec) v = __ldcs(sv + q);
+    const bool any = (unsigned)v.x < (unsigned)cap ||
+                     (unsigned)v.y < (unsigned)cap ||
+                     (unsigned)v.z < (unsigned)cap ||
+                     (unsigned)v.w < (unsigned)cap;
+    if (!__any_sync(0xffffffffu, any)) continue;
+    const int b = (int)(head + 4 * q);
+    ring_claim(v.x, cap, b, win);
+    ring_claim(v.y, cap, b + 1, win);
+    ring_claim(v.z, cap, b + 2, win);
+    ring_claim(v.w, cap, b + 3, win);
   }
 }
 
-__global__ void ring_set_write(const int* __restrict__ slots,
-                               const int* __restrict__ rows, long long B,
-                               int cap, const int* __restrict__ win,
-                               int* __restrict__ out) {
-  for (long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x; b < B;
-       b += (long long)gridDim.x * blockDim.x) {
-    const int s = slots[b];
-    if (s < 0 || s >= cap || win[s] != (int)b) continue;
-    const int* row = rows + 3 * b;
-    int* dst = out + 3 * (long long)s;
-    dst[0] = row[0];
-    dst[1] = row[1];
-    dst[2] = row[2];
+__global__ void ring_set_gather(const int* __restrict__ win,
+                                const int* __restrict__ prior,
+                                const int* __restrict__ c0,
+                                const int* __restrict__ c1,
+                                const int* __restrict__ c2, long long st0,
+                                long long st1, long long st2, int cap,
+                                int* __restrict__ out) {
+  const long long words = 3LL * cap;
+  for (long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       w < words; w += (long long)gridDim.x * blockDim.x) {
+    const long long s = w / 3;
+    const int c = (int)(w - 3 * s);
+    const long long b = win[s];
+    int v;
+    if (b < 0) {
+      v = prior[w];
+    } else if (c == 0) {
+      v = c0[b * st0];
+    } else if (c == 1) {
+      v = c1[b * st1];
+    } else {
+      v = c2[b * st2];
+    }
+    out[w] = v;
   }
 }
 
-extern "C" int tripoll_ring_set(const void* slots, const void* rows,
-                                long long B, int cap, void* win, void* out,
-                                void* stream) {
-  const int threads = 512;
-  long long blocks = (B + threads - 1) / threads;
-  const long long max_blocks = 132LL * 32;
-  if (blocks > max_blocks) blocks = max_blocks;
-  ring_set_winner<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const int*)slots, B, cap, (int*)win);
-  const cudaError_t err = cudaGetLastError();
+extern "C" int tripoll_ring_set(const void* slots, long long B, int cap,
+                                const void* prior, const void* c0,
+                                const void* c1, const void* c2, long long st0,
+                                long long st1, long long st2, void* win,
+                                void* out, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(win, 0xFF, (size_t)cap * sizeof(int), st);
   if (err != cudaSuccess) return (int)err;
-  ring_set_write<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const int*)slots, (const int*)rows, B, cap, (const int*)win,
-      (int*)out);
+  const int threads = 256;
+  const long long full = (long long)sms * (2048 / threads);  // one wave
+  long long blocks = ((B + 3) / 4 + threads - 1) / threads;
+  ring_set_winner<<<(unsigned)(blocks < full ? blocks : full), threads, 0,
+                    st>>>((const int*)slots, B, cap, (int*)win);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  blocks = (3LL * cap + threads - 1) / threads;
+  ring_set_gather<<<(unsigned)(blocks < full ? blocks : full), threads, 0,
+                    st>>>((const int*)win, (const int*)prior, (const int*)c0,
+                          (const int*)c1, (const int*)c2, st0, st1, st2, cap,
+                          (int*)out);
   return (int)cudaGetLastError();
 }

@@ -99,16 +99,23 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
-          device: torch.device) -> None:
-    """Raise unless ``t`` has the dtype, shape, device and contiguity the
-    kernel takes."""
+def check_strided(name: str, t: torch.Tensor, dtype: torch.dtype,
+                  shape: tuple, device: torch.device) -> None:
+    """Raise unless ``t`` has the dtype, shape and device the kernel takes
+    (any strides: the kernel is given them)."""
     if t.dtype != dtype:
         raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
+
+
+def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
+          device: torch.device) -> None:
+    """Raise unless ``t`` has the dtype, shape, device and contiguity the
+    kernel takes."""
+    check_strided(name, t, dtype, shape, device)
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
 

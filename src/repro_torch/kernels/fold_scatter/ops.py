@@ -64,12 +64,17 @@ def fold_count_max(slots, amounts, rows, capacity: int):
     return count, packed
 
 
+def _columns(rows):
+    """[B, 3] rows or a tuple of three [B] columns → the three columns."""
+    return tuple(rows) if isinstance(rows, (tuple, list)) else rows.unbind(-1)
+
+
 def ring_set_plain(prior, slots, rows, capacity: int):
     """Plain PyTorch version: ``prior`` [capacity, 3]; ``slots`` [B];
-    ``rows`` [B, 3]; all int32 → a fresh [capacity, 3] table. Each slot in
-    [0, capacity) holds the row of the highest batch index that targets
-    it; slots no element targets keep ``prior``; other slots are
-    dropped."""
+    ``rows`` [B, 3] or three [B] columns; all int32 → a fresh
+    [capacity, 3] table. Each slot in [0, capacity) holds the row of the
+    highest batch index that targets it; slots no element targets keep
+    ``prior``; other slots are dropped."""
     B = slots.shape[0]
     if B == 0 or capacity == 0:
         return prior.clone()
@@ -80,7 +85,9 @@ def ring_set_plain(prior, slots, rows, capacity: int):
     s = torch.where(ok, slots.long(), gidx % capacity)
     win = torch.full((capacity,), -1, dtype=torch.int64, device=slots.device)
     win.scatter_reduce_(0, s, torch.where(ok, gidx, -1), "amax")
-    return torch.where((win >= 0)[:, None], rows[win.clamp_min(0)], prior)
+    w = win.clamp_min(0)
+    picked = torch.stack([c[w] for c in _columns(rows)], -1)
+    return torch.where((win >= 0)[:, None], picked, prior)
 
 
 def ring_set(prior, slots, rows, capacity: int):
@@ -88,7 +95,8 @@ def ring_set(prior, slots, rows, capacity: int):
     the carried ``prior`` table: the highest batch index wins a contested
     slot (deterministic, unlike a plain scatter's ties); out-of-range
     slots (Enumerate's invalid lanes are ``capacity``) are dropped.
-    Shapes: ``prior`` [capacity, 3]; ``slots`` [B]; ``rows`` [B, 3]; all
+    Shapes: ``prior`` [capacity, 3]; ``slots`` [B]; ``rows`` [B, 3], or a
+    tuple of three [B] columns (any stride), read where they lie; all
     int32, B < 2³¹. Returns [capacity, 3]."""
     if slots.device.type == "cpu":
         return ring_set_plain(prior, slots, rows, capacity)
@@ -98,20 +106,31 @@ def ring_set(prior, slots, rows, capacity: int):
     dev = slots.device
     B = slots.shape[0]
     for name, t, shape in (("prior", prior, (capacity, 3)),
-                           ("slots", slots, (B,)), ("rows", rows, (B, 3))):
+                           ("slots", slots, (B,))):
         _cuda.check(f"ring_set {name}", t, torch.int32, shape, dev)
+    if isinstance(rows, (tuple, list)):
+        if len(rows) != 3:
+            raise ValueError(f"ring_set: {len(rows)} columns, expected 3")
+        for c, col in enumerate(rows):
+            _cuda.check_strided(f"ring_set column {c}", col, torch.int32,
+                                (B,), dev)
+    else:
+        _cuda.check("ring_set rows", rows, torch.int32, (B, 3), dev)
     if B >= 2**31:
         raise ValueError(f"ring_set: batch of {B} exceeds int32 indices")
-    out = prior.clone()
     if B == 0 or capacity == 0:
-        return out
-    win = torch.full((capacity,), -1, dtype=torch.int32, device=dev)
+        return prior.clone()
+    cols = _columns(rows)
+    out = torch.empty_like(prior)
+    win = torch.empty(capacity, dtype=torch.int32, device=dev)
     fn = _cuda.library("fold_scatter").tripoll_ring_set
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_int]
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int]
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3
                    + [ctypes.c_void_p] * 3)
     P = _cuda.ptr
-    err = fn(P(slots), P(rows), B, capacity, P(win), P(out),
+    err = fn(P(slots), B, capacity, P(prior), *map(P, cols),
+             *(c.stride(0) for c in cols), P(win), P(out),
              _cuda.stream_handle(dev))
     ring_set_launches += 1
     _cuda.raise_on_error("ring_set", err)
