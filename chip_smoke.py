@@ -17,6 +17,14 @@ Phases (every failure ends the run with a non-zero exit):
    ends; L below 32); ring_set also with B not a multiple of 4, slot views
    whose offset breaks 16-byte alignment, every lane on one slot, a ring
    that wraps, capacity 1, and its rows as [B, 3] and as columns.
+   fold_count_max also on skewed slots (a whole batch on one slot, two
+   slots alternating, a Zipf draw over 300 slots), all slots dropped, zero
+   amounts with non-zero rows, words 0xFFFFFFFF and 0x80000000, B of 1,
+   31, 33, 2¹⁴, 2¹⁴ + 1 and 2²⁰ + 3, rows not 16-byte aligned, W of 2 and
+   8, on both sides of its one-block limit (2¹⁴ elements) and on tables
+   too large for shared memory; wedge_check also on CSR-shaped keys (rows of 0, 1, 31, 32, 33,
+   421 and 1,100 keys, (d, h) ties broken by id, hashes ≥ 2³¹, queries
+   below and above every key of their row).
 3. ``small``   — karate, clique(8) and rmat(9, 16) with seeded metadata and
    temporal_social(1500, 30000, seed=1), with S ∈ {1, 4}, push and
    push-pull, dense and ragged: a bundle of all eight built-in surveys
@@ -53,12 +61,15 @@ Phases (every failure ends the run with a non-zero exit):
    and path c keep one superstep's operands of each kernel, on which each
    kernel equals its plain version; on the counting-set operands
    ``hist_add`` and ``hist_max`` equal their plain versions and together
-   equal ``fold_count_max``.
+   equal ``fold_count_max``. On path a, fold_count_max's launches are
+   counted by batch size in power-of-two bins, and the first call in the
+   bin with the most launches is kept (on the host) as its typical fold.
 5. Timing of each kernel at those captured shapes (median of CUDA-event
    times), its plain version's, its bound, a library call's where one
-   computes the same function, and one ``kernels`` JSON line; on a line
+   computes the same function, and one ``kernels`` JSON line; on lines
    before it, wedge_intersect at the fullest and at the last pull
-   superstep.
+   superstep, the fold_count_max launch bins, and the same measures of
+   fold_count_max at its typical fold.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Details go to ``build/chip_smoke.json``. The script imports nothing
@@ -302,6 +313,24 @@ def fold_inputs(rng, B, W, cap, dev, torch):
     return _tensors(torch, dev, slots, amounts, _u32_bits(rows))
 
 
+def skewed_fold_inputs(rng, case, B, W, cap, dev, torch):
+    """Skewed and edge-case fold_count_max operands
+    (``fold_scatter/ref.py``)."""
+    from repro_torch.kernels.fold_scatter.ref import skewed_fold_inputs
+
+    slots, amounts, rows = skewed_fold_inputs(rng, case, B, W, cap)
+    return _tensors(torch, dev, slots, amounts, _u32_bits(rows))
+
+
+def csr_wedge_check_inputs(rng, S, B, dev, torch):
+    """Push queries on CSR-shaped keys (``wedge_check/ref.py``)."""
+    from repro_torch.kernels.wedge_check.ref import csr_wedge_check_inputs
+
+    kd, kh, ki, lo, hi, qd, qh, qi = csr_wedge_check_inputs(rng, S, B)
+    return _tensors(torch, dev, kd, _u32_bits(kh), ki, lo, hi, qd,
+                    _u32_bits(qh), qi)
+
+
 def csr_wedge_intersect_inputs(rng, E, B, Lr, L, dev, torch):
     """Keys laid out as a shard's CSR slots (sorted vertex rows back to
     back, repeated keys), so candidate windows descend at row boundaries;
@@ -364,6 +393,11 @@ def phase_kernels(torch, report, dev):
         args = wedge_check_inputs(rng, S, E, B, dev, torch)
         equal_outputs(wc.wedge_check(*args), wc.wedge_check_plain(*args), torch)
         cases += 1
+    # CSR-shaped rows; B not a multiple of 32 and more queries than a wave
+    for S, B in ((1, 35), (2, 1000), (8, 33), (8, 40001)):
+        args = csr_wedge_check_inputs(rng, S, B, dev, torch)
+        equal_outputs(wc.wedge_check(*args), wc.wedge_check_plain(*args), torch)
+        cases += 1
     # globally sorted keys, then CSR-shaped ones (L below 32 and not a
     # multiple of 4, rows narrower and wider than L, more edges than the
     # persistent grid has warps); Lr = 5000 rows exceed eight warps'
@@ -395,6 +429,32 @@ def phase_kernels(torch, report, dev):
         equal_outputs(hist.hist_max(slots, rows, cap),
                       hist.hist_max_plain(slots, rows, cap), torch)
         cases += 3
+    # skewed and edge cases on both sides of the one-block limit (2¹⁴);
+    # cap 50,000 exceeds shared memory: device atomics at every B
+    for case, B, W, cap in (
+            ("one_slot", 100000, 5, 4096), ("one_slot", 5000, 5, 4096),
+            ("alternating", 70001, 5, 4096), ("alternating", 999, 5, 4096),
+            ("zipf", 2**20 + 3, 5, 4096), ("zipf", 3000, 5, 4096),
+            ("dropped", 100000, 5, 4096), ("dropped", 40, 5, 4096),
+            ("zero_amounts", 200000, 5, 4096), ("zero_amounts", 77, 5, 4096),
+            ("extreme_words", 150000, 5, 4096), ("extreme_words", 33, 5, 64),
+            ("zipf", 1, 5, 4096), ("uniform", 31, 5, 4096),
+            ("uniform", 33, 5, 4096), ("zipf", 100003, 2, 4096),
+            ("uniform", 100000, 8, 1024), ("zipf", 2**20 + 3, 5, 50000),
+            ("zipf", 5000, 5, 50000), ("zipf", 2**14, 5, 4096),
+            ("zipf", 2**14 + 1, 5, 4096)):
+        args = skewed_fold_inputs(rng, case, B, W, cap, dev, torch)
+        equal_outputs(fs.fold_count_max(*args, cap),
+                      fs.fold_count_max_plain(*args, cap), torch)
+        cases += 1
+    # rows that do not start on 16 bytes (a view one row in)
+    for B in (100000, 5000):
+        slots, amounts, rows = skewed_fold_inputs(rng, "zipf", B + 1, 5, 4096,
+                                                  dev, torch)
+        args = (slots[1:], amounts[1:], rows[1:])
+        equal_outputs(fs.fold_count_max(*args, 4096),
+                      fs.fold_count_max_plain(*args, 4096), torch)
+        cases += 1
     # a table too wide for shared memory (LocalVertexCount's), few slots
     # (MaxEdgeLabelDist's), and a batch that hits nothing
     for B, cap in ((200000, 262144), (300000, 16), (1000, 0)):
@@ -591,6 +651,44 @@ def phase_small(torch, report, dev):
 # phase 4: the full-size deployment through the user entry points
 
 
+class LaunchBins:
+    """Wraps fold_count_max to count its launches by batch size in
+    power-of-two bins (bin k holds 2^k <= B < 2^(k+1); a call with B = 0
+    launches nothing) and to keep a host copy of the first call's operands
+    in each bin: no device memory stays pinned. The wrapped function still
+    counts its launches."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.counts, self.first = {}, {}
+        setattr(module, name, self)
+
+    def __call__(self, slots, amounts, rows, capacity):
+        B = slots.shape[0]
+        if B and slots.device.type == "cuda":
+            k = B.bit_length() - 1
+            self.counts[k] = self.counts.get(k, 0) + 1
+            if k not in self.first:
+                self.first[k] = (slots.cpu(), amounts.cpu(), rows.cpu(),
+                                 capacity)
+        return self.fn(slots, amounts, rows, capacity)
+
+    def restore(self):
+        setattr(self.module, self.name, self.fn)
+
+    def modal(self, dev):
+        """The first call in the bin with the most launches (the smaller
+        bin on a tie), its operands on ``dev``, as ``(args, kw)``."""
+        k = max(self.counts, key=lambda k: (self.counts[k], -k))
+        slots, amounts, rows, cap = self.first[k]
+        return (slots.to(dev), amounts.to(dev), rows.to(dev), cap), {}
+
+
+def bin_labels(counts: dict) -> dict:
+    return {f"2^{k}": counts[k] for k in sorted(counts)}
+
+
 class Recorder:
     """Wraps a kernel wrapper to keep the operands of its first call, of
     its largest call (by operand size; the first of equal sizes, so the
@@ -772,7 +870,12 @@ def phase_full(torch, report, scale, dev):
                 f"exact {st['exact']}")
 
     launches = full["launches"] = {}
+    bins = LaunchBins(fs, "fold_count_max")
     _, launches["first"] = run_path(torch, dev, "first", first_path)
+    bins.restore()
+    full["fold_count_max_bins"] = bin_labels(bins.counts)
+    require(sum(bins.counts.values()) == launches["first"]["fold_count_max"]
+            or dev.type != "cuda", "fold_count_max bins miss launches")
     full["max_memory_allocated"] = (torch.cuda.max_memory_allocated()
                                     if dev.type == "cuda" else 0)
     tc_push = results[("TriangleCount", "push")][0]
@@ -895,6 +998,13 @@ def phase_full(torch, report, scale, dev):
                   wi.wedge_intersect_plain(*last[0], **last[1]), torch)
     captured["wedge_intersect_last"] = (last, wi.wedge_intersect,
                                         wi.wedge_intersect_plain)
+    if bins.counts:
+        typical = bins.modal(dev)
+        errs["fold_count_max_typical"] = equal_outputs(
+            fs.fold_count_max(*typical[0]), fs.fold_count_max_plain(*typical[0]),
+            torch)
+        captured["fold_count_max_typical"] = (typical, fs.fold_count_max,
+                                              fs.fold_count_max_plain)
     sync(torch, dev)
     log("full: each kernel == its plain version on captured superstep inputs; "
         "hist_add + hist_max == fold_count_max")
@@ -1115,30 +1225,36 @@ def _shape(a):
     return list(a.shape) if hasattr(a, "shape") else a
 
 
+def measure(torch, name, entry) -> dict:
+    """Time a kernel, its plain version and its library call on captured
+    operands, and compute its bound from them."""
+    (args, kw), kern, plain = entry
+    ms = time_ms(torch, lambda: kern(*args, **kw))
+    plain_ms = time_ms(torch, lambda: plain(*args, **kw), reps=5, warmup=1)
+    lib = library_call(torch, name, args)
+    lib_ms = time_ms(torch, lib) if lib is not None else None
+    nbytes, nops = bound_work(torch, name, args, kw)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = nops / PEAK_OPS_PER_S * 1e3
+    row = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               library_ms=lib_ms, bytes=nbytes, operations=nops,
+               bytes_ms=bytes_ms, ops_ms=ops_ms,
+               shapes=[_shape(a) for a in args])
+    log(f"time {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+        f"{row['bound_ms']:.5f} ms by {row['bound_by']}: bytes "
+        f"{bytes_ms:.5f} ms, operations {ops_ms:.5f} ms; library {lib_ms}) "
+        f"at {row['shapes']}")
+    return row
+
+
 def phase_timing(torch, report, captured, launches, errs):
     rows = []
     for name, mod, _, source, replaces in KERNELS:
-        (args, kw), kern, plain = captured[name]
-        ms = time_ms(torch, lambda: kern(*args, **kw))
-        plain_ms = time_ms(torch, lambda: plain(*args, **kw), reps=5, warmup=1)
-        lib = library_call(torch, name, args)
-        lib_ms = time_ms(torch, lib) if lib is not None else None
-        nbytes, nops = bound_work(torch, name, args, kw)
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = nops / PEAK_OPS_PER_S * 1e3
         rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches[REPORTED_PATH[name]][name],
-            max_abs_err=errs[name], ms=ms,
-            plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-            library_ms=lib_ms, bytes=nbytes, operations=nops,
-            bytes_ms=bytes_ms, ops_ms=ops_ms,
-            shapes=[_shape(a) for a in args]))
-        log(f"time {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
-            f"{rows[-1]['bound_ms']:.5f} ms by {rows[-1]['bound_by']}: bytes "
-            f"{bytes_ms:.5f} ms, operations {ops_ms:.5f} ms; library {lib_ms}) "
-            f"at {rows[-1]['shapes']}")
+            max_abs_err=errs[name], **measure(torch, name, captured[name])))
     (args, kw), kern, _ = captured["wedge_intersect_last"]
     last_ms = report["wedge_intersect_last_ms"] = time_ms(
         torch, lambda: kern(*args, **kw))
@@ -1148,6 +1264,13 @@ def phase_timing(torch, report, captured, launches, errs):
         f"({int((full_ln > 0).sum())} of {full_ln.numel()} pulled rows "
         f"non-empty), last pull superstep {last_ms:.4f} ms "
         f"({int((args[7] > 0).sum())} non-empty)")
+    bins = report["full"]["fold_count_max_bins"]
+    log(f"fold_count_max launches on path a by batch size: {json.dumps(bins)}")
+    typical = dict(max_abs_err=errs["fold_count_max_typical"],
+                   **measure(torch, "fold_count_max",
+                             captured["fold_count_max_typical"]))
+    report["fold_count_max_typical"] = typical
+    log(f"fold_count_max at its typical fold: {json.dumps(typical)}")
     report["kernels"] = rows
     return rows
 

@@ -28,6 +28,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+
+# ctypes argument types of the C entry points
+PTR, I64, I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 
 def _nvcc() -> str:
@@ -89,6 +93,18 @@ def library(name: str) -> ctypes.CDLL:
             build_all()
         lib = _libs[name] = ctypes.CDLL(str(so))
     return lib
+
+
+def function(lib: str, name: str, argtypes: list) -> ctypes._CFuncPtr:
+    """The C entry point ``name`` of ``csrc/<lib>.cu``; its signature (an
+    int result, ``argtypes``) is set once, when it is first asked for."""
+    fn = _fns.get((lib, name))
+    if fn is None:
+        fn = getattr(library(lib), name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _fns[(lib, name)] = fn
+    return fn
 
 
 def stream_handle(device: torch.device) -> int:

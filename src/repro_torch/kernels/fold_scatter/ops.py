@@ -9,8 +9,6 @@ alone decides. They replace the JAX package's
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import _cuda
@@ -18,6 +16,14 @@ from repro_torch.kernels.hist.ops import hist_add_plain, hist_max_plain
 
 launches = 0            # fold_count_max kernel launches (not the plain path)
 ring_set_launches = 0   # ring_set kernel launches (not the plain path)
+
+# tripoll_fold_count_max(slots, amounts, rows, B, W, cap, table, stream)
+FOLD_COUNT_MAX_ARGTYPES = ([_cuda.PTR] * 3 + [_cuda.I64, _cuda.I32, _cuda.I32]
+                           + [_cuda.PTR] * 2)
+# tripoll_ring_set(slots, B, cap, prior, c0, c1, c2, st0, st1, st2, win,
+#                  out, stream)
+RING_SET_ARGTYPES = ([_cuda.PTR, _cuda.I64, _cuda.I32] + [_cuda.PTR] * 4
+                     + [_cuda.I64] * 3 + [_cuda.PTR] * 3)
 
 
 def fold_count_max_plain(slots, amounts, rows, capacity: int):
@@ -47,21 +53,19 @@ def fold_count_max(slots, amounts, rows, capacity: int):
     for name, t, shape in (("slots", slots, (B,)), ("amounts", amounts, (B,)),
                            ("rows", rows, (B, W))):
         _cuda.check(f"fold_count_max {name}", t, torch.int32, shape, dev)
-    count = torch.zeros(capacity, dtype=torch.int32, device=dev)
-    packed = torch.zeros((capacity, W), dtype=torch.int32, device=dev)
+    # one buffer, zeroed by the launcher on the stream: count, then packed
     if B == 0:
-        return count, packed
-    fn = _cuda.library("fold_scatter").tripoll_fold_count_max
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
-                                            ctypes.c_int]
-                   + [ctypes.c_void_p] * 3)
+        table = torch.zeros(capacity * (W + 1), dtype=torch.int32, device=dev)
+        return table[:capacity], table[capacity:].view(capacity, W)
+    table = torch.empty(capacity * (W + 1), dtype=torch.int32, device=dev)
+    fn = _cuda.function("fold_scatter", "tripoll_fold_count_max",
+                        FOLD_COUNT_MAX_ARGTYPES)
     P = _cuda.ptr
-    err = fn(P(slots), P(amounts), P(rows), B, W, capacity, P(count),
-             P(packed), _cuda.stream_handle(dev))
+    err = fn(P(slots), P(amounts), P(rows), B, W, capacity, P(table),
+             _cuda.stream_handle(dev))
     launches += 1
     _cuda.raise_on_error("fold_count_max", err)
-    return count, packed
+    return table[:capacity], table[capacity:].view(capacity, W)
 
 
 def _columns(rows):
@@ -123,11 +127,7 @@ def ring_set(prior, slots, rows, capacity: int):
     cols = _columns(rows)
     out = torch.empty_like(prior)
     win = torch.empty(capacity, dtype=torch.int32, device=dev)
-    fn = _cuda.library("fold_scatter").tripoll_ring_set
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int]
-                   + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3
-                   + [ctypes.c_void_p] * 3)
+    fn = _cuda.function("fold_scatter", "tripoll_ring_set", RING_SET_ARGTYPES)
     P = _cuda.ptr
     err = fn(P(slots), B, capacity, P(prior), *map(P, cols),
              *(c.stride(0) for c in cols), P(win), P(out),

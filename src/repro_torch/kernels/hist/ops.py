@@ -10,8 +10,6 @@ the dense-histogram surveys and the pair carries the counting set's
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import _cuda
@@ -65,10 +63,9 @@ def hist_add(slots, amounts, capacity: int):
     count = torch.zeros(capacity, dtype=torch.int32, device=dev)
     if B == 0 or capacity == 0:
         return count
-    fn = _cuda.library("hist").tripoll_hist_add
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_int]
-                   + [ctypes.c_void_p] * 2)
+    fn = _cuda.function("hist", "tripoll_hist_add",
+                        [_cuda.PTR] * 2 + [_cuda.I64, _cuda.I32]
+                        + [_cuda.PTR] * 2)
     P = _cuda.ptr
     err = fn(P(slots), P(amounts), B, capacity, P(count),
              _cuda.stream_handle(dev))
@@ -95,11 +92,9 @@ def hist_max(slots, rows, capacity: int):
     packed = torch.zeros((capacity, W), dtype=torch.int32, device=dev)
     if B == 0 or capacity == 0 or W == 0:
         return packed
-    fn = _cuda.library("hist").tripoll_hist_max
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_int,
-                                            ctypes.c_int]
-                   + [ctypes.c_void_p] * 2)
+    fn = _cuda.function("hist", "tripoll_hist_max",
+                        [_cuda.PTR] * 2 + [_cuda.I64, _cuda.I32, _cuda.I32]
+                        + [_cuda.PTR] * 2)
     P = _cuda.ptr
     err = fn(P(slots), P(rows), B, W, capacity, P(packed),
              _cuda.stream_handle(dev))

@@ -8,8 +8,6 @@ alone decides. It replaces the JAX package's
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import _cuda
@@ -61,10 +59,9 @@ def intersect(row_d, row_h, row_i, ln, qd, qh, qi):
     pos = torch.empty((B, L), dtype=torch.int32, device=dev)
     if B == 0 or L == 0:
         return pos
-    fn = _cuda.library("intersect").tripoll_intersect
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int]
-                   + [ctypes.c_void_p] * 2)
+    fn = _cuda.function("intersect", "tripoll_intersect",
+                        [_cuda.PTR] * 7 + [_cuda.I64, _cuda.I32]
+                        + [_cuda.PTR] * 2)
     P = _cuda.ptr
     err = fn(P(row_d), P(row_h), P(row_i), P(ln), P(qd), P(qh), P(qi), B, L,
              P(pos), _cuda.stream_handle(dev))

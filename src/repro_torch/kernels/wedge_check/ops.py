@@ -7,8 +7,6 @@ alone decides. It replaces the JAX package's
 """
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
@@ -16,6 +14,10 @@ from repro_torch.kernels import _cuda
 from repro_torch.utils import u32_key
 
 launches = 0   # kernel launches made by this wrapper (not by the plain path)
+
+# tripoll_wedge_check(kd, kh, ki, S, E, lo, hi, qd, qh, qi, B, out, stream)
+ARGTYPES = ([_cuda.PTR] * 3 + [_cuda.I64] * 2 + [_cuda.PTR] * 5 + [_cuda.I64]
+            + [_cuda.PTR] * 2)
 
 
 def lower_bound_steps(n: int) -> int:
@@ -64,11 +66,7 @@ def wedge_check(keys_d, keys_h, keys_i, lo, hi, qd, qh, qi):
     out = torch.empty((S, B), dtype=torch.int32, device=dev)
     if S == 0 or B == 0:
         return out
-    fn = _cuda.library("wedge_check").tripoll_wedge_check
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2
-                   + [ctypes.c_void_p] * 5 + [ctypes.c_longlong]
-                   + [ctypes.c_void_p] * 2)
+    fn = _cuda.function("wedge_check", "tripoll_wedge_check", ARGTYPES)
     P = _cuda.ptr
     err = fn(P(keys_d), P(keys_h), P(keys_i), S, E, P(lo), P(hi), P(qd),
              P(qh), P(qi), B, P(out), _cuda.stream_handle(dev))

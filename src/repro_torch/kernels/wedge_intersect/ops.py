@@ -7,8 +7,6 @@ device alone decides. It replaces the JAX package's
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import _cuda
@@ -16,6 +14,11 @@ from repro_torch.kernels.wedge_check.ops import lower_bound_steps
 from repro_torch.utils import u32_key
 
 launches = 0   # kernel launches made by this wrapper (not by the plain path)
+
+# tripoll_wedge_intersect(kd, kh, ki, E, e, rd, rh, ri, ln, B, Lr, L, pos,
+#                         ci, stream)
+ARGTYPES = ([_cuda.PTR] * 3 + [_cuda.I64] + [_cuda.PTR] * 5
+            + [_cuda.I64, _cuda.I32, _cuda.I32] + [_cuda.PTR] * 3)
 
 
 def wedge_intersect_plain(keys_d, keys_h, keys_i, e, row_d, row_h, row_i, ln,
@@ -71,12 +74,8 @@ def wedge_intersect(keys_d, keys_h, keys_i, e, row_d, row_h, row_i, ln,
         return pos, ci
     if E == 0 or Lr == 0:
         raise ValueError("wedge_intersect: empty key arrays or rows")
-    fn = _cuda.library("wedge_intersect").tripoll_wedge_intersect
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
-                   + [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
-                                              ctypes.c_int]
-                   + [ctypes.c_void_p] * 3)
+    fn = _cuda.function("wedge_intersect", "tripoll_wedge_intersect",
+                        ARGTYPES)
     P = _cuda.ptr
     err = fn(P(keys_d), P(keys_h), P(keys_i), E, P(e), P(row_d), P(row_h),
              P(row_i), P(ln), B, Lr, L, P(pos), P(ci),
