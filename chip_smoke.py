@@ -22,9 +22,17 @@ Phases (every failure ends the run with a non-zero exit):
    amounts with non-zero rows, words 0xFFFFFFFF and 0x80000000, B of 1,
    31, 33, 2¹⁴, 2¹⁴ + 1 and 2²⁰ + 3, rows not 16-byte aligned, W of 2 and
    8, on both sides of its one-block limit (2¹⁴ elements) and on tables
-   too large for shared memory; wedge_check also on CSR-shaped keys (rows of 0, 1, 31, 32, 33,
-   421 and 1,100 keys, (d, h) ties broken by id, hashes ≥ 2³¹, queries
-   below and above every key of their row).
+   too large for shared memory; hist_add and hist_max at their four
+   callers' shape classes (LocalVertexCount's 262,144 slots with repeated
+   ids, MaxEdgeLabelDist's 16, ClosureTime's hot bins, LabelTripleSet's
+   4,096 counts and [4,096, 5] rows), skewed (one slot, 16 slots, Zipf,
+   all dropped, sums that wrap), on both sides of every batch-size limit
+   between their routes that ``csrc/hist.cu`` defines, and as views whose
+   offsets break 16-byte alignment; hist_max also with rows too wide for
+   the fold body's stages (W = 16) and tables too large for shared
+   memory; wedge_check also on CSR-shaped keys
+   (rows of 0, 1, 31, 32, 33, 421 and 1,100 keys, (d, h) ties broken by
+   id, hashes ≥ 2³¹, queries below and above every key of their row).
 3. ``small``   — karate, clique(8) and rmat(9, 16) with seeded metadata and
    temporal_social(1500, 30000, seed=1), with S ∈ {1, 4}, push and
    push-pull, dense and ragged: a bundle of all eight built-in surveys
@@ -51,8 +59,14 @@ Phases (every failure ends the run with a non-zero exit):
       eight built-ins. Its triangle count is the known 82,824,164; every
       member's result is checked against it, Enumerate's rows and the
       top-k triangles against the edge set, the top-k weights against
-      the timestamps. Peak device memory is read from this run; a short
-      window of it is profiled for the device's idle share.
+      the timestamps; the plan is stamped ``bitwise`` by tracing the
+      bundle's folds. Each hist_add and hist_max launch is counted, by
+      power-of-two batch-size bins, for the member whose ``update`` made
+      it (ClosureTime, LabelTripleSet, LocalVertexCount,
+      MaxEdgeLabelDist), with host copies of each member's first call in
+      each bin and of its largest call. Peak device memory is read from
+      this run; a short window of it is profiled for the device's idle
+      share.
    c. the split pull kernel: TriangleCount push-pull with
       ``pull_kernel="split"``, equal to the fused run in count and stats.
 
@@ -66,9 +80,14 @@ Phases (every failure ends the run with a non-zero exit):
    bin with the most launches is kept (on the host) as its typical fold.
 5. Timing of each kernel at those captured shapes (median of CUDA-event
    times), its plain version's, its bound, a library call's where one
-   computes the same function, and one ``kernels`` JSON line; on lines
-   before it, wedge_intersect at the fullest and at the last pull
-   superstep, the fold_count_max launch bins, and the same measures of
+   computes the same function, and one ``kernels`` JSON line; hist_add and
+   hist_max have a row for each caller's modal fold (the first call in
+   its bin with the most launches) and, where at least four times larger,
+   its largest fold, each equal to its plain version, ranked by launches ×
+   (ms − bound); and one at DegreeTriples' largest fold (a shape no real
+   call has, kept for comparison with earlier runs). On lines before the
+   JSON: wedge_intersect at the fullest and at the last pull superstep,
+   the fold_count_max launch bins, and the same measures of
    fold_count_max at its typical fold.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
@@ -77,9 +96,11 @@ of JAX; it needs ``src/repro_torch`` beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -136,6 +157,12 @@ KERNELS = (
     ("hist_max", "hist", "hist_max_launches", "src/repro_torch/csrc/hist.cu",
      "src/repro/kernels/hist/hist.py:74"),
 )
+
+# the surveys of the bundle path that call each hist kernel (their updates
+# fold through it)
+HIST_CALLERS = {"hist_add": ("ClosureTime", "LabelTripleSet",
+                             "LocalVertexCount", "MaxEdgeLabelDist"),
+                "hist_max": ("LabelTripleSet",)}
 
 # the kernels each full-size path must launch, and the path whose count
 # the kernels line reports
@@ -366,6 +393,15 @@ def ring_inputs(rng, B, cap, case, dev, torch):
                     rows.astype(np.int32))
 
 
+def fold_limits() -> dict:
+    """The batch-size limits between the routes (``k*MaxB``) that the
+    fold launchers define."""
+    csrc = ROOT / "src" / "repro_torch" / "csrc"
+    text = "".join((csrc / f).read_text() for f in ("hist.cu", "fold_scatter.cu"))
+    return {m[1]: int(m[2]) for m in
+            re.finditer(r"constexpr long long (k\w+MaxB) = (\d+);", text)}
+
+
 def equal_outputs(a, b, torch) -> int:
     """Max |a - b| over the outputs; raises unless exactly equal."""
     a = a if isinstance(a, tuple) else (a,)
@@ -462,6 +498,68 @@ def phase_kernels(torch, report, dev):
         equal_outputs(hist.hist_add(slots, amounts, cap),
                       hist.hist_add_plain(slots, amounts, cap), torch)
         cases += 1
+    # the hist callers' shape classes (LocalVertexCount's 262,144 slots
+    # with repeated ids, MaxEdgeLabelDist's 16, ClosureTime's hot bins,
+    # LabelTripleSet's count and [4,096, 5] rows), skewed, on both sides of
+    # each limit between the routes (one block, the first port's kernels,
+    # blocks; device atomics, then table slices for LocalVertexCount's
+    # table); the last B of each list also as views one element in, whose
+    # offsets break 16-byte alignment
+    lim = fold_limits()
+    la, ka = lim["kAddSingleMaxB"], lim["kAddKeptMaxB"]
+    wa, lm = lim["kAddDirectMaxB"], lim["kMaxSingleMaxB"]
+    for case, cap, sizes in (
+            ("repeated_ids", 262144, (1, 2**14, wa, wa + 1)),
+            ("one_slot", 262144, (2**14, wa + 1)),
+            ("uniform", 262144, (2**14, wa + 1)),
+            ("sixteen", 16, (33, la, la + 1, ka, ka + 1)),
+            ("one_slot", 16, (1, la, la + 1, ka + 1)),
+            ("zipf", 16, (la + 1, ka + 1)),
+            ("dropped", 16, (la, ka + 1)),
+            ("hot_bins", 4096, (1000, la, la + 1, ka, ka + 1)),
+            ("zipf", 4096, (31, la, la + 1, ka, 2**20 + 3)),
+            ("one_slot", 4096, (la, la + 1, ka + 1)),
+            ("dropped", 4096, (77, ka + 1)),
+            ("wrap", 4096, (la, la + 1, ka + 1)),
+            ("uniform", 4096, (33, la + 1, ka + 1))):
+        for B in sizes:
+            slots, amounts, _ = skewed_fold_inputs(rng, case, B + 1, 1, cap,
+                                                   dev, torch)
+            views = [(slots[:B], amounts[:B])]
+            if B == sizes[-1]:
+                views.append((slots[1:], amounts[1:]))
+            for s_, a_ in views:
+                equal_outputs(hist.hist_add(s_, a_, cap),
+                              hist.hist_add_plain(s_, a_, cap), torch)
+                cases += 1
+    # hist_max: LabelTripleSet's [4,096, 5] rows, W of 2 and 8, and rows too
+    # wide for the fold body's stages (W = 16: the first port's shared
+    # kernel where the table fits in shared memory, its device-atomic one
+    # where it does not) and tables too large for shared memory, at both
+    # sides of the one-block limit
+    for case, W, sizes, *rest in (
+            ("zipf", 5, (1, 33, lm, lm + 1, 2**20 + 3)),
+            ("one_slot", 5, (lm, lm + 1, 300001)),
+            ("extreme_words", 5, (77, lm + 1)),
+            ("dropped", 5, (lm, 200001)),
+            ("sixteen", 5, (lm + 1,)),
+            ("uniform", 2, (lm, lm + 1)), ("uniform", 8, (1000, 70001)),
+            ("zipf", 16, (33, lm, lm + 1), 1024),
+            ("one_slot", 16, (lm, 100001), 1024),
+            ("zipf", 16, (1000, lm, 70001), 4096),
+            ("zipf", 5, (lm, lm + 1, 300001), 50000),
+            ("dropped", 16, (lm,), 50000)):
+        cap = rest[0] if rest else 4096
+        for B in sizes:
+            slots, _, rows = skewed_fold_inputs(rng, case, B + 1, W, cap,
+                                                dev, torch)
+            views = [(slots[:B], rows[:B])]
+            if B == sizes[-1]:
+                views.append((slots[1:], rows[1:]))
+            for s_, r_ in views:
+                equal_outputs(hist.hist_max(s_, r_, cap),
+                              hist.hist_max_plain(s_, r_, cap), torch)
+                cases += 1
     # rows as [B, 3], as its strided columns and as separate columns; the
     # slots also as views whose storage offset breaks 16-byte alignment
     for B, cap, case in ((3, 8, "mixed"), (5000, 64, "contested"),
@@ -651,38 +749,80 @@ def phase_small(torch, report, dev):
 # phase 4: the full-size deployment through the user entry points
 
 
+def _on(args, dev):
+    return tuple(a.to(dev) if hasattr(a, "to") else a for a in args)
+
+
 class LaunchBins:
-    """Wraps fold_count_max to count its launches by batch size in
-    power-of-two bins (bin k holds 2^k <= B < 2^(k+1); a call with B = 0
-    launches nothing) and to keep a host copy of the first call's operands
-    in each bin: no device memory stays pinned. The wrapped function still
-    counts its launches."""
+    """Wraps a kernel wrapper to count its launches by batch size (the
+    first operand's length) in power-of-two bins (bin k holds 2^k <= B <
+    2^(k+1); a call with B = 0 launches nothing), per caller: ``caller``
+    names the survey whose ``update`` is running (``tag_updates`` sets it;
+    None outside). For each caller it keeps a host copy of the first
+    call's operands in each bin and of its largest call: no device memory
+    stays pinned. The wrapped function still counts its launches."""
 
     def __init__(self, module, name):
         self.module, self.name = module, name
         self.fn = getattr(module, name)
-        self.counts, self.first = {}, {}
+        self.caller = None
+        self.by_caller = {}   # caller: dict(counts, first, largest)
         setattr(module, name, self)
 
-    def __call__(self, slots, amounts, rows, capacity):
-        B = slots.shape[0]
-        if B and slots.device.type == "cuda":
+    def __call__(self, *args):
+        B = args[0].shape[0]
+        if B and args[0].device.type == "cuda":
+            rec = self.by_caller.setdefault(
+                self.caller, dict(counts={}, first={}, largest=None))
             k = B.bit_length() - 1
-            self.counts[k] = self.counts.get(k, 0) + 1
-            if k not in self.first:
-                self.first[k] = (slots.cpu(), amounts.cpu(), rows.cpu(),
-                                 capacity)
-        return self.fn(slots, amounts, rows, capacity)
+            rec["counts"][k] = rec["counts"].get(k, 0) + 1
+            if k not in rec["first"]:
+                rec["first"][k] = _on(args, "cpu")
+            if rec["largest"] is None or B > rec["largest"][0].shape[0]:
+                rec["largest"] = rec["first"][k] if (
+                    rec["first"][k][0].shape[0] == B) else _on(args, "cpu")
+        return self.fn(*args)
 
     def restore(self):
         setattr(self.module, self.name, self.fn)
 
-    def modal(self, dev):
-        """The first call in the bin with the most launches (the smaller
-        bin on a tie), its operands on ``dev``, as ``(args, kw)``."""
-        k = max(self.counts, key=lambda k: (self.counts[k], -k))
-        slots, amounts, rows, cap = self.first[k]
-        return (slots.to(dev), amounts.to(dev), rows.to(dev), cap), {}
+    def counts(self, caller=None) -> dict:
+        return self.by_caller.get(caller, {}).get("counts", {})
+
+    def modal_bin(self, caller=None) -> int:
+        """The bin with the most launches (the smaller bin on a tie)."""
+        counts = self.counts(caller)
+        return max(counts, key=lambda k: (counts[k], -k))
+
+    def modal(self, dev, caller=None):
+        """The first call in the modal bin, its operands on ``dev``, as
+        ``(args, kw)``."""
+        return _on(self.by_caller[caller]["first"][self.modal_bin(caller)],
+                   dev), {}
+
+    def largest(self, dev, caller=None):
+        return _on(self.by_caller[caller]["largest"], dev), {}
+
+
+@contextlib.contextmanager
+def tag_updates(bundle, wrappers):
+    """While a bundle member's ``update`` runs, every wrapper's ``caller``
+    is the member's name."""
+    for name, member in zip(bundle.names, bundle.surveys):
+        def update(state, tri, _name=name, _fn=member.update):
+            for w in wrappers:
+                w.caller = _name
+            try:
+                return _fn(state, tri)
+            finally:
+                for w in wrappers:
+                    w.caller = None
+        member.update = update
+    try:
+        yield
+    finally:
+        for member in bundle.surveys:
+            del member.update
 
 
 def bin_labels(counts: dict) -> dict:
@@ -873,8 +1013,8 @@ def phase_full(torch, report, scale, dev):
     bins = LaunchBins(fs, "fold_count_max")
     _, launches["first"] = run_path(torch, dev, "first", first_path)
     bins.restore()
-    full["fold_count_max_bins"] = bin_labels(bins.counts)
-    require(sum(bins.counts.values()) == launches["first"]["fold_count_max"]
+    full["fold_count_max_bins"] = bin_labels(bins.counts())
+    require(sum(bins.counts().values()) == launches["first"]["fold_count_max"]
             or dev.type != "cuda", "fold_count_max bins miss launches")
     full["max_memory_allocated"] = (torch.cuda.max_memory_allocated()
                                     if dev.type == "cuda" else 0)
@@ -911,10 +1051,24 @@ def phase_full(torch, report, scale, dev):
     require(cfg_b.determinism == "bitwise", "bundle not stamped bitwise")
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
+    hist_bins = {k: LaunchBins(hist, k) for k in HIST_CALLERS}
     t0 = time.perf_counter()
-    (res_b, st_b), launches["bundle"] = run_path(
-        torch, dev, "bundle", lambda: survey_push_pull(gr_lab, bundle, cfg_b))
+    with tag_updates(bundle, list(hist_bins.values())):
+        (res_b, st_b), launches["bundle"] = run_path(
+            torch, dev, "bundle",
+            lambda: survey_push_pull(gr_lab, bundle, cfg_b))
     full["bundle_s"] = time.perf_counter() - t0
+    for b in hist_bins.values():
+        b.restore()
+    full["hist_bins"] = {k: {c: bin_labels(b.counts(c)) for c in b.by_caller}
+                         for k, b in hist_bins.items()}
+    for k, b in hist_bins.items():
+        require(sorted(b.by_caller, key=str) == sorted(HIST_CALLERS[k])
+                or dev.type != "cuda",
+                f"{k} callers {list(b.by_caller)} != {HIST_CALLERS[k]}")
+        require(sum(sum(b.counts(c).values()) for c in b.by_caller)
+                == launches["bundle"][k] or dev.type != "cuda",
+                f"{k} launches not all attributed to a caller")
     full["bundle_max_memory_allocated"] = (torch.cuda.max_memory_allocated()
                                            if dev.type == "cuda" else 0)
     full["bundle_stats"] = st_b
@@ -998,7 +1152,27 @@ def phase_full(torch, report, scale, dev):
                   wi.wedge_intersect_plain(*last[0], **last[1]), torch)
     captured["wedge_intersect_last"] = (last, wi.wedge_intersect,
                                         wi.wedge_intersect_plain)
-    if bins.counts:
+    # each hist caller's modal fold, and its largest where that is at
+    # least four times as large
+    hist_calls = captured["hist_callers"] = []
+    for k, b in hist_bins.items():
+        kern, plain = getattr(hist, k), getattr(hist, f"{k}_plain")
+        for caller in sorted(b.by_caller, key=str):
+            shapes = [("modal", b.modal(dev, caller))]
+            largest = b.largest(dev, caller)
+            if largest[0][0].shape[0] >= 4 * shapes[0][1][0][0].shape[0]:
+                shapes.append(("largest", largest))
+            for which, entry in shapes:
+                B = entry[0][0].shape[0]
+                hist_calls.append(dict(
+                    name=k, caller=caller, fold=which, batch=B,
+                    bin=f"2^{B.bit_length() - 1}",
+                    caller_launches=sum(b.counts(caller).values()),
+                    launches_in_bin=b.counts(caller)[B.bit_length() - 1],
+                    max_abs_err=equal_outputs(kern(*entry[0]),
+                                              plain(*entry[0]), torch),
+                    entry=(entry, kern, plain)))
+    if bins.counts():
         typical = bins.modal(dev)
         errs["fold_count_max_typical"] = equal_outputs(
             fs.fold_count_max(*typical[0]), fs.fold_count_max_plain(*typical[0]),
@@ -1011,8 +1185,9 @@ def phase_full(torch, report, scale, dev):
     return captured, launches, errs
 
 
-# the port's kernels as the profiler names them
-PORT_KERNEL_NAMES = ("wedge_check", "wedge_intersect", "fold_count_max",
+# the port's kernels as the profiler names them (fold_kernel: the fold body
+# of fold_count_max, hist_add and hist_max)
+PORT_KERNEL_NAMES = ("wedge_check", "wedge_intersect", "fold_kernel",
                      "ring_set", "intersect", "hist_add", "hist_max")
 
 
@@ -1251,10 +1426,35 @@ def measure(torch, name, entry) -> dict:
 def phase_timing(torch, report, captured, launches, errs):
     rows = []
     for name, mod, _, source, replaces in KERNELS:
-        rows.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[REPORTED_PATH[name]][name],
-            max_abs_err=errs[name], **measure(torch, name, captured[name])))
+        common = dict(name=name, route="cuda", source=source,
+                      replaces=replaces)
+        launched = launches[REPORTED_PATH[name]][name]
+        if name in HIST_CALLERS:
+            # where the launches are: each caller's modal (and largest)
+            # fold on the bundle path; launches are the caller's
+            for call in captured["hist_callers"]:
+                if call["name"] != name:
+                    continue
+                row = dict(common, launches=call["caller_launches"],
+                           max_abs_err=call["max_abs_err"],
+                           **measure(torch, name, call["entry"]))
+                row.update((k, call[k]) for k in (
+                    "caller", "fold", "batch", "bin", "launches_in_bin"))
+                row["loss_s"] = (row["launches"]
+                                 * (row["ms"] - row["bound_ms"]) / 1e3)
+                rows.append(row)
+            # the shape earlier runs timed, kept for comparison
+            shape = "DegreeTriples' largest fold: no real call has this shape"
+        else:
+            shape = None
+        rows.append(dict(common, launches=launched, max_abs_err=errs[name],
+                         **measure(torch, name, captured[name])))
+        if shape:
+            rows[-1].update(caller=None, fold=shape)
+    ranked = sorted((r for r in rows if r.get("loss_s") is not None
+                     and r["fold"] == "modal"), key=lambda r: -r["loss_s"])
+    log("hist losses at the modal folds (launches x (ms - bound)): " + ", ".join(
+        f"{r['name']}/{r['caller']} {r['loss_s']:.4f} s" for r in ranked))
     (args, kw), kern, _ = captured["wedge_intersect_last"]
     last_ms = report["wedge_intersect_last_ms"] = time_ms(
         torch, lambda: kern(*args, **kw))

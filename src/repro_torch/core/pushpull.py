@@ -15,15 +15,17 @@ that configurations and reports compare field by field. Not ported yet:
 from __future__ import annotations
 
 import hashlib
+import weakref
 from dataclasses import dataclass, fields as dc_fields
 
 import numpy as np
 
+from repro_torch.analysis.contracts import classify_determinism
 from repro_torch.comm.exchange import TRANSPORTS
 from repro_torch.core.dodgr import (delta_gen_mask, hub_widths, meta_widths,
                                     orient_edges, sparsify_edges)
 from repro_torch.core.engine import EngineConfig
-from repro_torch.core.surveys import MetaSpec, Survey, SurveyBundle
+from repro_torch.core.surveys import MetaSpec, Survey
 from repro_torch.graphs.csr import HostGraph
 from repro_torch.utils import bucket_cap, bucket_caps, bucket_floor, ceil_div
 
@@ -247,33 +249,36 @@ def plan_shape_signature(cfg: EngineConfig) -> tuple:
             cfg.project_meta, cfg.orient, cfg.shard_axis)
 
 
-# The JAX package classifies each survey's fold algebra by tracing it
-# (repro.analysis.contracts). Until analysis/ is ported, the port stamps
-# the verdict of each built-in from this table; the tests hold the table
-# equal to the reference's verdicts.
-_DETERMINISM = {
-    "TriangleCount": "bitwise",
-    "DegreeTriples": "bitwise",
-    "LocalVertexCount": "bitwise",
-    "ClosureTime": "bitwise",
-    "MaxEdgeLabelDist": "bitwise",
-    "LabelTripleSet": "bitwise",
-    "Enumerate": "bitwise",
-    "TopKWeightedTriangles": "bitwise",
-}
+# determinism verdicts are pure functions of (survey instance, storage
+# widths); classification runs three fold hooks, so cache it per survey —
+# re-planning every epoch must not re-run them
+_det_cache: "weakref.WeakKeyDictionary[Survey, dict]" = \
+    weakref.WeakKeyDictionary()
+# surveys that take no weak reference fall back to a strong dict keyed by
+# content fingerprint: classification still runs once per (survey content,
+# widths) instead of once per plan
+_det_cache_by_fp: dict = {}
+_DET_FP_CACHE_MAX = 1024
 
 
 def _determinism_of(survey, widths: tuple) -> str:
-    """Fold-algebra verdict for the plan's survey: ``"bitwise"``,
-    ``"order_sensitive"`` or ``"unknown"`` (a bare MetaSpec, or a survey
-    the table does not know). A bundle is bitwise when every member is,
-    and otherwise takes the first verdict that is not."""
+    """Fold-algebra verdict for the plan's survey (see
+    :func:`repro_torch.analysis.contracts.classify_determinism`), cached
+    per (survey, storage widths); a bundle is classified whole. A plan
+    built from a bare MetaSpec (or none) has no fold to classify: stamped
+    ``"unknown"``."""
     if not isinstance(survey, Survey):
         return "unknown"
-    if isinstance(survey, SurveyBundle):
-        verdicts = [_determinism_of(m, widths) for m in survey.surveys]
-        return next((v for v in verdicts if v != "bitwise"), "bitwise")
-    return _DETERMINISM.get(type(survey).__name__, "unknown")
+    try:
+        per_widths = _det_cache.setdefault(survey, {})
+    except TypeError:
+        if len(_det_cache_by_fp) >= _DET_FP_CACHE_MAX:
+            _det_cache_by_fp.clear()
+        per_widths = _det_cache_by_fp.setdefault(
+            survey_fingerprint(survey), {})
+    if widths not in per_widths:
+        per_widths[widths] = classify_determinism(survey, widths)[0]
+    return per_widths[widths]
 
 
 def _resolve_plan_spec(survey, g: HostGraph) -> MetaSpec:

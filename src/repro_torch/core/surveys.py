@@ -195,6 +195,30 @@ class TriangleBatch:
     e_qr_f: torch.Tensor
     valid: torch.Tensor      # [B] bool
 
+    @classmethod
+    def zeros(cls, spec: MetaSpec, batch: int = 64,
+              device=None) -> "TriangleBatch":
+        """A batch of ``batch`` lanes at ``spec``'s projected widths, every
+        field zero and every lane valid: what the fold-determinism trace
+        (:mod:`repro_torch.analysis.contracts`) runs a survey's ``update``
+        on, as the JAX package traces its ``TriangleBatch.abstract``.
+        ``spec`` must be resolved (:meth:`MetaSpec.resolve`)."""
+        def item(lanes, dtype):
+            if lanes is None:
+                raise ValueError("TriangleBatch.zeros() needs a resolved "
+                                 "MetaSpec; call .resolve(dvi, dvf, dei, "
+                                 "def_) first")
+            return torch.zeros((batch, eff_width(lanes)), dtype=dtype,
+                               device=device)
+
+        ids = {k: torch.zeros(batch, dtype=torch.int32, device=device)
+               for k in "pqr"}
+        meta = {f"{it}_{kind}": item(getattr(spec, f"{it}_{kind}"), dtype)
+                for it in _V_ITEMS + _E_ITEMS
+                for kind, dtype in (("i", torch.int32), ("f", torch.float32))}
+        return cls(**ids, **meta,
+                   valid=torch.ones(batch, dtype=torch.bool, device=device))
+
     def shard(self, s: int) -> "TriangleBatch":
         """Shard ``s`` of a batch whose fields carry a leading shard axis."""
         return TriangleBatch(**{f.name: getattr(self, f.name)[s]

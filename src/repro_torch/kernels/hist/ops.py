@@ -18,6 +18,12 @@ from repro_torch.utils import INT32_MIN, u32_key
 hist_add_launches = 0   # hist_add kernel launches (not the plain path)
 hist_max_launches = 0   # hist_max kernel launches (not the plain path)
 
+# tripoll_hist_add(slots, amounts, B, cap, count, stream)
+HIST_ADD_ARGTYPES = [_cuda.PTR] * 2 + [_cuda.I64, _cuda.I32] + [_cuda.PTR] * 2
+# tripoll_hist_max(slots, rows, B, W, cap, packed, stream)
+HIST_MAX_ARGTYPES = ([_cuda.PTR] * 2 + [_cuda.I64, _cuda.I32, _cuda.I32]
+                     + [_cuda.PTR] * 2)
+
 
 def _spare_slot(slots, capacity: int) -> torch.Tensor:
     """int64 slots with every one outside [0, capacity) sent to the spare
@@ -60,12 +66,11 @@ def hist_add(slots, amounts, capacity: int):
     B = slots.shape[0]
     for name, t in (("slots", slots), ("amounts", amounts)):
         _cuda.check(f"hist_add {name}", t, torch.int32, (B,), dev)
-    count = torch.zeros(capacity, dtype=torch.int32, device=dev)
     if B == 0 or capacity == 0:
-        return count
-    fn = _cuda.function("hist", "tripoll_hist_add",
-                        [_cuda.PTR] * 2 + [_cuda.I64, _cuda.I32]
-                        + [_cuda.PTR] * 2)
+        return torch.zeros(capacity, dtype=torch.int32, device=dev)
+    # written whole by the kernel, or zeroed by its launcher on the stream
+    count = torch.empty(capacity, dtype=torch.int32, device=dev)
+    fn = _cuda.function("hist", "tripoll_hist_add", HIST_ADD_ARGTYPES)
     P = _cuda.ptr
     err = fn(P(slots), P(amounts), B, capacity, P(count),
              _cuda.stream_handle(dev))
@@ -89,12 +94,10 @@ def hist_max(slots, rows, capacity: int):
     W = rows.shape[-1]
     _cuda.check("hist_max slots", slots, torch.int32, (B,), dev)
     _cuda.check("hist_max rows", rows, torch.int32, (B, W), dev)
-    packed = torch.zeros((capacity, W), dtype=torch.int32, device=dev)
     if B == 0 or capacity == 0 or W == 0:
-        return packed
-    fn = _cuda.function("hist", "tripoll_hist_max",
-                        [_cuda.PTR] * 2 + [_cuda.I64, _cuda.I32, _cuda.I32]
-                        + [_cuda.PTR] * 2)
+        return torch.zeros((capacity, W), dtype=torch.int32, device=dev)
+    packed = torch.empty((capacity, W), dtype=torch.int32, device=dev)
+    fn = _cuda.function("hist", "tripoll_hist_max", HIST_MAX_ARGTYPES)
     P = _cuda.ptr
     err = fn(P(slots), P(rows), B, W, capacity, P(packed),
              _cuda.stream_handle(dev))

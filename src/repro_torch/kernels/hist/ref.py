@@ -1,8 +1,10 @@
-"""Exact host oracles for hist_add and hist_max: Python loops over the
-batch."""
+"""Exact host oracles for hist_add and hist_max (Python loops over the
+batch), and models of their CUDA kernels' folds."""
 from __future__ import annotations
 
 import numpy as np
+
+from repro_torch.kernels.fold_scatter.ref import fold_warp_numpy
 
 
 def hist_add_numpy(slots, amounts, capacity: int):
@@ -24,3 +26,20 @@ def hist_max_numpy(slots, rows, capacity: int):
         if 0 <= s < capacity:
             packed[s] = np.maximum(packed[s], rows[b])
     return packed
+
+
+def hist_add_warp_numpy(slots, amounts, capacity: int, **path):
+    """The hist_add kernel's fold on the host: the shared fold body
+    counting only, match-aggregated on device atomics alone
+    (:func:`fold_warp_numpy`; ``path``, ``blocks``, ``warps`` and
+    ``slices`` as there). Returns ``(count [capacity] int32, stats)``."""
+    count, _, stats = fold_warp_numpy(slots, amounts, None, capacity, **path)
+    return count, stats
+
+
+def hist_max_warp_numpy(slots, rows, capacity: int, **path):
+    """The hist_max kernel's fold on the host: the shared fold body maxing
+    only (the launcher takes its one-block path). Returns ``(packed
+    [capacity, W] uint32, stats)``."""
+    _, packed, stats = fold_warp_numpy(slots, None, rows, capacity, **path)
+    return packed, stats
