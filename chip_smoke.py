@@ -30,9 +30,13 @@ Phases (every failure ends the run with a non-zero exit):
    between their routes that ``csrc/hist.cu`` defines, and as views whose
    offsets break 16-byte alignment; hist_max also with rows too wide for
    the fold body's stages (W = 16) and tables too large for shared
-   memory; wedge_check also on CSR-shaped keys
-   (rows of 0, 1, 31, 32, 33, 421 and 1,100 keys, (d, h) ties broken by
-   id, hashes ≥ 2³¹, queries below and above every key of their row).
+   memory; fold_count_max with rows of 15, 16 and 64 words (read where
+   they lie, not staged) on both sides of its one-block limit, on tables
+   too large for shared memory and on skewed slots; wedge_check also on
+   CSR-shaped keys (rows of 0, 1, 31, 32, 33, 421 and 1,100 keys, (d, h)
+   ties broken by id, hashes ≥ 2³¹, queries below and above every key of
+   their row) and on the hub lane's operands (stable-key rows of 1 to
+   25,374 keys flattened to one key row).
 3. ``small``   — karate, clique(8) and rmat(9, 16) with seeded metadata and
    temporal_social(1500, 30000, seed=1), with S ∈ {1, 4}, push and
    push-pull, dense and ragged: a bundle of all eight built-in surveys
@@ -43,12 +47,20 @@ Phases (every failure ends the run with a non-zero exit):
    the triangle count equals the pure-Python oracle. The float32 bins of DegreeTriples (around every
    power of two up to 2³¹) and of ClosureTime (the 4,096 float32
    neighbours of every power of two up to 2²⁰) on the card equal the
-   CPU's.
+   CPU's. The hub lane: karate, rmat(9, 16) and temporal_social(1500,
+   30000) with a forced θ, the bundle of all eight, S ∈ {1, 4}, push and
+   push-pull, dense and ragged, fused and split; card == CPU == oracle.
+   Delta streams: tests/test_delta.py's graph in K = 4 timestamp-ordered
+   batches from an empty base, the bundle of seven, push and push-pull,
+   without hubs, with rebuilt hub tables and with a HubTableCache: every
+   epoch's state and stats on the card equal the CPU's, and the
+   rendering equals a one-shot stable-key survey and the oracle's count;
+   Enumerate's rows equal the oracle's triangle set.
 4. ``full``    — Graph500 R-MAT (a=0.57, b=0.19, c=0.19), scale 18, edge
    factor 16, seed 0; S=8 logical shards on the card, dense transport,
    ``plan_engine(..., push_cap=4096, pull_q_cap=16)``, through the user
    entry points (``shard_dodgr`` → ``plan_engine`` → ``survey_push_only``
-   / ``survey_push_pull``). Three paths, each with the launch counts set
+   / ``survey_push_pull``). Five paths, each with the launch counts set
    to 0 just before it and read just after:
 
    a. the first slice's: degree metadata; TriangleCount and
@@ -69,6 +81,19 @@ Phases (every failure ends the run with a non-zero exit):
       share.
    c. the split pull kernel: TriangleCount push-pull with
       ``pull_kernel="split"``, equal to the fused run in count and stats.
+   d. the hub lane: path a's graph, ``plan_engine(..., hub_theta="auto",
+      hub_wedge_cap=2²⁰)``, TriangleCount and DegreeTriples push-pull:
+      θ, the hub set and the hub steps as planned, the hub, push and pull
+      stats as planned (the float32 sums within their rounding), the
+      known count, DegreeTriples equal to path a's; walls and peak memory.
+   e. a delta stream under the stable key, push-only: the edges less a
+      seeded 0.1% (``numpy.random.default_rng(3)``) appended to an empty
+      base, then the held-out edges, each epoch through ``plan_delta(...,
+      push_cap=65536, hub_theta="auto", hub_wedge_cap=2²⁰)`` and
+      ``shard_delta`` with a HubTableCache, polling TriangleCount (alone,
+      for the script's time). After the two epochs: the known count, and
+      the epochs' tris_push + tris_hub equal to it (within float32
+      rounding).
 
    Every run is exact and every kernel of a path launched on it. A
    capture run (DegreeTriples and Enumerate bundled, on path a's graph)
@@ -85,7 +110,10 @@ Phases (every failure ends the run with a non-zero exit):
    its bin with the most launches) and, where at least four times larger,
    its largest fold, each equal to its plain version, ranked by launches ×
    (ms − bound); and one at DegreeTriples' largest fold (a shape no real
-   call has, kept for comparison with earlier runs). On lines before the
+   call has, kept for comparison with earlier runs); wedge_check at paths
+   d's and e's first hub superstep, fold_count_max on path a's largest
+   fold with rows of 16 words (no real call); every row with the
+   kernel's launches on each path a–e. On lines before the
    JSON: wedge_intersect at the fullest and at the last pull superstep,
    the fold_count_max launch bins, and the same measures of
    fold_count_max at its typical fold.
@@ -171,7 +199,12 @@ PATH_KERNELS = {
     "bundle": ("wedge_check", "wedge_intersect", "fold_count_max",
                "ring_set", "hist_add", "hist_max"),
     "split": ("wedge_check", "intersect"),
+    "hub": ("wedge_check", "wedge_intersect", "fold_count_max"),
+    "delta": ("wedge_check", "fold_count_max"),
 }
+# the letters PERF.md gives the full-size paths
+PATH_LETTERS = {"first": "a", "bundle": "b", "split": "c", "hub": "d",
+                "delta": "e"}
 REPORTED_PATH = {"wedge_check": "first", "wedge_intersect": "first",
                  "fold_count_max": "first", "ring_set": "bundle",
                  "hist_add": "bundle", "hist_max": "bundle",
@@ -354,6 +387,15 @@ def csr_wedge_check_inputs(rng, S, B, dev, torch):
     from repro_torch.kernels.wedge_check.ref import csr_wedge_check_inputs
 
     kd, kh, ki, lo, hi, qd, qh, qi = csr_wedge_check_inputs(rng, S, B)
+    return _tensors(torch, dev, kd, _u32_bits(kh), ki, lo, hi, qd,
+                    _u32_bits(qh), qi)
+
+
+def hub_wedge_check_inputs(rng, n_rows, B, dev, torch):
+    """Hub-lane queries in one flattened key row (``wedge_check/ref.py``)."""
+    from repro_torch.kernels.wedge_check.ref import hub_wedge_check_inputs
+
+    kd, kh, ki, lo, hi, qd, qh, qi = hub_wedge_check_inputs(rng, n_rows, B)
     return _tensors(torch, dev, kd, _u32_bits(kh), ki, lo, hi, qd,
                     _u32_bits(qh), qi)
 
@@ -577,6 +619,31 @@ def phase_kernels(torch, report, dev):
             view = torch.cat([slots.new_full((off,), -1), slots])[off:]
             equal_outputs(fs.ring_set(prior, view, cols, cap), want, torch)
         cases += 1
+    # fold_count_max with rows of 15 words or more, read where they lie:
+    # both sides of the one-block limit, tables too large for shared memory
+    # (W = 16 at 4,096 slots, W = 64 at 1,024 and 50,000), skewed slots,
+    # and rows that do not start on 16 bytes
+    for case, B, W, cap in (
+            ("zipf", 2**14, 15, 1024), ("zipf", 2**14 + 1, 15, 1024),
+            ("one_slot", 5000, 16, 1024), ("zipf", 2**14, 16, 1024),
+            ("zipf", 2**14 + 1, 16, 1024), ("alternating", 70001, 16, 1024),
+            ("dropped", 3000, 16, 1024), ("extreme_words", 20001, 16, 1024),
+            ("zipf", 100003, 16, 4096), ("one_slot", 3000, 16, 4096),
+            ("zipf", 2**14, 64, 16), ("zipf", 2**14 + 1, 64, 16),
+            ("uniform", 70001, 64, 1024), ("zipf", 5000, 64, 50000)):
+        slots, amounts, rows = skewed_fold_inputs(rng, case, B + 1, W, cap,
+                                                  dev, torch)
+        for args in ((slots[:B], amounts[:B], rows[:B]),
+                     (slots[1:], amounts[1:], rows[1:])):
+            equal_outputs(fs.fold_count_max(*args, cap),
+                          fs.fold_count_max_plain(*args, cap), torch)
+            cases += 1
+    # wedge_check on the hub lane's operands: the hub table flattened to
+    # one key row of stable-key rows of 1 to 25,374 keys
+    for n_rows, B in ((5, 1000), (64, 2**20)):
+        args = hub_wedge_check_inputs(rng, n_rows, B, dev, torch)
+        equal_outputs(wc.wedge_check(*args), wc.wedge_check_plain(*args), torch)
+        cases += 1
     # L = 5000 rows exceed 48 KB of shared memory: the device-memory search
     for B, L in ((4, 16), (300, 37), (1000, 421), (7, 5000)):
         args = intersect_inputs(rng, B, L, dev, torch)
@@ -745,6 +812,188 @@ def phase_small(torch, report, dev):
     log(f"small: {runs} runs, card == CPU == oracle, {report['small_s']:.1f} s")
 
 
+# the small hub-lane runs: graph: (forced θ, hub_wedge_cap, push_cap,
+# pull_q_cap); and (S, transport, mode, pull kernel) of each run, so that
+# each graph runs both S, both modes, both transports and both kernels
+SMALL_HUB = {"karate": (9, 8, 256, 8), "rmat9": (90, 256, 256, 8),
+             "social": (200, 1024, 4096, 32)}
+SMALL_HUB_RUNS = ((1, "dense", "push", "auto"), (1, "ragged", "pushpull", "fused"),
+                  (4, "dense", "pushpull", "fused"), (4, "ragged", "pushpull", "split"),
+                  (4, "ragged", "push", "auto"))
+SMALL_DELTA_THETA = 25   # the small delta streams' forced hub threshold
+
+
+def phase_small_hub(torch, report, dev):
+    """The hub lane on karate, rmat(9, 16) and temporal_social(1500,
+    30000): the bundle of all eight with a forced θ; card == CPU ==
+    oracle, and the hub lane closed triangles."""
+    from repro_torch.core.dodgr import shard_dodgr
+    from repro_torch.core.engine import survey_push_only, survey_push_pull
+    from repro_torch.core.pushpull import plan_engine
+    from repro_torch.core.ref import count_triangles_ref
+    from repro_torch.graphs import generators
+    from repro_torch.graphs.csr import HostGraph
+
+    e = np.array(KARATE_EDGES, np.int64)
+    graphs = {"karate": HostGraph.from_edges(34, e[:, 0], e[:, 1]),
+              "rmat9": generators.rmat(9, 16, seed=0),
+              "social": generators.temporal_social(1500, 30000, seed=1)}
+    t0 = time.perf_counter()
+    runs = 0
+    for gname, g in graphs.items():
+        theta, hub_cap, push_cap, pull_q_cap = SMALL_HUB[gname]
+        g_lab = survey_meta(g, seed=2)
+        t_ref = count_triangles_ref(g_lab)
+        shards = {}
+        for S, transport, mode, kernel in SMALL_HUB_RUNS:
+            if S not in shards:
+                shards[S] = tuple(shard_dodgr(g_lab, S, hub_theta=theta,
+                                              device=d)[0]
+                                  for d in (dev, "cpu"))
+            survey = bundle_of_all(g.n, enum_cap=32)
+            cfg, _ = plan_engine(g_lab, S, survey, mode=mode,
+                                 push_cap=push_cap, pull_q_cap=pull_q_cap,
+                                 transport=transport, hub_theta=theta,
+                                 hub_wedge_cap=hub_cap)
+            cfg = dataclasses.replace(cfg, pull_kernel=kernel)
+            fn = survey_push_only if mode == "push" else survey_push_pull
+            (res_g, st_g), (res_c, st_c) = (fn(gr, survey, cfg)
+                                            for gr in shards[S])
+            tag = f"hub {gname} θ={theta} S={S} {transport} {mode} {kernel}"
+            require(same(res_g, res_c), f"{tag}: card result != CPU result")
+            require(st_g == st_c, f"{tag}: card stats != CPU stats")
+            require(st_g["exact"], f"{tag}: inexact")
+            require(shards[S][0].n_hubs > 1 and cfg.n_hub_steps > 1
+                    and st_g["tris_hub"] > 0, f"{tag}: the hub lane closed nothing")
+            require(res_g["TriangleCount"] == t_ref
+                    and res_g["Enumerate"]["total_found"] == t_ref,
+                    f"{tag}: count != oracle {t_ref}")
+            runs += 1
+        log(f"small hub: {gname} θ={theta}, {shards[4][0].n_hubs} hubs at "
+            f"S=4, ok")
+    report["small_hub_runs"] = runs
+    report["small_hub_s"] = time.perf_counter() - t0
+    log(f"small hub: {runs} runs, card == CPU == oracle, "
+        f"{report['small_hub_s']:.1f} s")
+
+
+def delta_test_graph(n: int, m: int, seed: int):
+    """tests/test_delta.py's graph: temporal_social with the final graph's
+    degree as a second vertex column and an int edge label (id mod 7)."""
+    from repro_torch.graphs import generators
+    from repro_torch.graphs.csr import HostGraph, MetaSpec
+
+    g = generators.temporal_social(n, m, seed=seed)
+    spec = MetaSpec(v_int=g.spec.v_int + ("degree",), e_int=("elabel",),
+                    e_float=g.spec.e_float)
+    deg = g.degrees().astype(np.int32)[:, None]
+    return HostGraph(g.n, g.src, g.dst, spec,
+                     np.concatenate([g.vmeta_i, deg], 1), None,
+                     (np.arange(g.m, dtype=np.int32) % 7)[:, None], g.emeta_f)
+
+
+def delta_bundle(n: int):
+    """tests/test_delta.py's bundle of seven: every built-in whose epochs
+    accumulate bit for bit."""
+    from repro_torch.core import surveys as sv
+
+    return sv.SurveyBundle([
+        sv.TriangleCount(), sv.ClosureTime(ts_col=0),
+        sv.LabelTripleSet(v_label_col=0, capacity=1 << 12),
+        sv.MaxEdgeLabelDist(n_labels=8, e_label_col=0, v_label_col=0),
+        sv.DegreeTriples(deg_col=1, capacity=1 << 12),
+        sv.LocalVertexCount(n), sv.TopKWeightedTriangles(k=16, weight_col=0)])
+
+
+def empty_base(g):
+    from repro_torch.graphs.csr import HostGraph
+
+    empty = np.zeros(0, np.int64)
+    return HostGraph(g.n, empty, empty, g.spec, g.vmeta_i, g.vmeta_f)
+
+
+def append(dg_or_base, g, idx):
+    return dg_or_base.append_edges(g.src[idx], g.dst[idx],
+                                   emeta_i=g.emeta_i[idx],
+                                   emeta_f=g.emeta_f[idx])
+
+
+def phase_small_delta(torch, report, dev):
+    """K = 4 timestamp-ordered batches of tests/test_delta.py's graph from
+    an empty base, push and push-pull, without hubs, with rebuilt hub
+    tables and with a HubTableCache: every epoch's state and stats on the
+    card equal the CPU's; the rendering equals a one-shot stable-key
+    survey of the union and the oracle's count. Enumerate's rows equal
+    the oracle's triangle set."""
+    from repro_torch.core.dodgr import HubTableCache, shard_delta, shard_dodgr
+    from repro_torch.core.engine import (finalize_epochs, survey_delta,
+                                         survey_push_only, survey_push_pull)
+    from repro_torch.core.pushpull import plan_delta, plan_engine
+    from repro_torch.core.ref import count_triangles_ref, survey_triangles_ref
+    from repro_torch.core.surveys import Enumerate
+    from repro_torch.interop import state_to_numpy
+
+    t0 = time.perf_counter()
+    g = delta_test_graph(120, 1200, seed=4)
+    batches = np.array_split(np.argsort(g.emeta_f[:, 0], kind="stable"), 4)
+    t_ref = count_triangles_ref(g)
+    runs = 0
+
+    def stream(survey, mode, hubs):
+        theta = SMALL_DELTA_THETA if hubs != "none" else 0
+        base = empty_base(g)
+        cache = HubTableCache(base) if hubs == "cached" else None
+        dg, states, hub_tris = None, [None, None], 0.0
+        for k, idx in enumerate(batches):
+            dg = append(dg if dg is not None else base, g, idx)
+            cfg, _ = plan_delta(dg, 2, survey, mode=mode, push_cap=64,
+                                pull_q_cap=4, hub_theta=theta)
+            out = []
+            for i, d in enumerate((dev, "cpu")):
+                # one cache serves both: advance() is idempotent at an epoch
+                gr, _ = shard_delta(dg, 2, hub_theta=cfg.hub_theta,
+                                    hub_cache=cache, device=d)
+                states[i], st = survey_delta(gr, survey, cfg, states[i])
+                out.append((state_to_numpy(states[i]), st))
+            tag = f"delta {mode} hubs={hubs} epoch {k + 1}"
+            require(same(out[0][0], out[1][0]), f"{tag}: card state != CPU state")
+            require(out[0][1] == out[1][1], f"{tag}: card stats != CPU stats")
+            require(out[0][1]["exact"], f"{tag}: inexact")
+            hub_tris += out[0][1]["tris_hub"]
+        require(hubs == "none" or hub_tris > 0, f"{mode} {hubs}: no hub triangle")
+        return dg, states[0]
+
+    for mode in ("push", "pushpull"):
+        for hubs in ("none", "rebuilt", "cached"):
+            survey = delta_bundle(g.n)
+            dg, state = stream(survey, mode, hubs)
+            res = finalize_epochs(survey, state)
+            u = dg.union()
+            cfg, _ = plan_engine(u, 2, survey, mode=mode, orient="stable",
+                                 push_cap=64, pull_q_cap=4)
+            gr, _ = shard_dodgr(u, 2, orient="stable", device=dev)
+            fn = survey_push_only if mode == "push" else survey_push_pull
+            full, _ = fn(gr, survey, cfg)
+            require(same(res, full), f"delta {mode} hubs={hubs}: epochs != one-shot")
+            require(res["TriangleCount"] == t_ref,
+                    f"delta {mode} hubs={hubs}: {res['TriangleCount']} != {t_ref}")
+            runs += 1
+    survey = Enumerate(capacity=4096)
+    _, state = stream(survey, "pushpull", "cached")
+    res = finalize_epochs(survey, state)
+    oracle = set()
+    survey_triangles_ref(g, lambda p, q, r, m: oracle.add((p, q, r)),
+                         orient="stable")
+    require(res["total_found"] == len(oracle) and res["overflowed"] == 0
+            and {tuple(t) for t in res["triangles"].tolist()} == oracle,
+            "delta Enumerate rows != the oracle's triangles")
+    report["small_delta_streams"] = runs + 1
+    report["small_delta_s"] = time.perf_counter() - t0
+    log(f"small delta: {runs + 1} streams of 4 epochs, card == CPU, == "
+        f"one-shot == oracle ({t_ref} triangles), "
+        f"{report['small_delta_s']:.1f} s")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the full-size deployment through the user entry points
 
@@ -858,6 +1107,74 @@ class Recorder:
 
     def restore(self):
         setattr(self.module, self.name, self.fn)
+
+
+def operand_size(args) -> int:
+    return sum(operand_size(a) if isinstance(a, tuple) else a.numel()
+               for a in args if isinstance(a, tuple) or hasattr(a, "numel"))
+
+
+class LaneCapture:
+    """Wraps a kernel wrapper to count its launches by lane (``lane_of``
+    names a call's lane from its operands) and keep host copies of the
+    operands of each lane's first launch and of its largest (by operand
+    size; the first of equal sizes). No device memory stays pinned: the
+    copies are made as the run goes, each waiting for the card, and
+    ``copy_s`` sums the host time they took inside the run. The wrapped
+    function still counts its launches."""
+
+    def __init__(self, module, name, lane_of=None):
+        self.module, self.name = module, name
+        self.lane_of = lane_of or (lambda args: name)
+        self.fn = getattr(module, name)
+        self.lanes = {}     # lane: dict(launches, first, largest, size)
+        self.copy_s = 0.0
+        setattr(module, name, self)
+
+    def __call__(self, *args, **kw):
+        before = read_launches()[self.name]
+        out = self.fn(*args, **kw)
+        if read_launches()[self.name] == before:
+            return out
+        lane = self.lanes.setdefault(self.lane_of(args), dict(
+            launches=0, first=None, largest=None, size=-1))
+        lane["launches"] += 1
+        size = operand_size(args)
+        if size > lane["size"]:
+            t0 = time.perf_counter()
+            host = (_on(args, "cpu"), kw)
+            self.copy_s += time.perf_counter() - t0
+            lane["first"] = lane["first"] or host
+            lane["largest"], lane["size"] = host, size
+        return out
+
+    def restore(self):
+        setattr(self.module, self.name, self.fn)
+
+
+def push_or_hub(args) -> str:
+    """wedge_check's lane: the hub search has one flattened key row."""
+    return "hub" if args[0].shape[0] == 1 else "push"
+
+
+def memory_reset(torch, dev) -> int:
+    """Reset the peak device memory count; returns the bytes allocated
+    now (0 on the CPU)."""
+    if dev.type != "cuda":
+        return 0
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def peak_memory(torch, dev) -> int:
+    return torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+
+
+def f32_near(stat: float, exact: int, adds: int) -> bool:
+    """A float32 stat summed from ``adds`` exact integers lies within half
+    an ulp of its magnitude a sum of ``exact`` (ROADMAP Queue 3 (a))."""
+    ulp = float(np.spacing(np.float32(max(exact, 1))))
+    return abs(stat - exact) <= adds * ulp / 2
 
 
 def run_path(torch, dev, name, fn):
@@ -1086,6 +1403,8 @@ def phase_full(torch, report, scale, dev):
                 torch, f"bundle, {PROFILE_PULL_STEPS} pull supersteps",
                 lambda: survey_push_pull(gr_lab, bundle, window))
 
+    del gr_lab
+
     # path c: the split pull kernel
     survey, cfg, _ = plans[("TriangleCount", "pushpull")]
     split = dataclasses.replace(cfg, pull_kernel="split")
@@ -1102,6 +1421,10 @@ def phase_full(torch, report, scale, dev):
     require(st_s == st_f, "split stats != fused stats")
     log(f"survey TriangleCount pushpull split: {full['split_s']:.2f} s == fused; "
         f"launches {launches['split']}")
+
+    lane_rows = paths_hub_delta(torch, dev, full, g, S, expect,
+                                results[("DegreeTriples", "pushpull")][0],
+                                launches)
 
     # capture one superstep's inputs of each kernel: DegreeTriples and
     # Enumerate bundled on path a's graph run wedge_check, wedge_intersect,
@@ -1134,9 +1457,23 @@ def phase_full(torch, report, scale, dev):
         "hist_max": (((slots, rows, cap), {}), hist.hist_max,
                      hist.hist_max_plain),
     }
+    # paths d and e: each kernel's largest launch of each lane, and a fold
+    # of rows of 16 words (path a's largest fold's slots)
+    pairs = {"wedge_check": (wc.wedge_check, wc.wedge_check_plain),
+             "wedge_intersect": (wi.wedge_intersect, wi.wedge_intersect_plain),
+             "fold_count_max": (fs.fold_count_max, fs.fold_count_max_plain)}
+    for r in lane_rows:
+        args, kw = r.pop("entry")
+        captured[r["key"]] = ((_on(args, dev), kw), *pairs[r["name"]])
+    rows16 = torch.as_tensor(np.random.default_rng(5).integers(
+        0, 2**32, (slots.shape[0], 16), dtype=np.uint64).astype(np.uint32)
+        .view(np.int32), device=dev)
+    captured["fold_count_max_w16"] = (((slots, amounts, rows16, cap), {}),
+                                      fs.fold_count_max, fs.fold_count_max_plain)
     errs = {}
     for name, ((args, kw), kern, plain) in captured.items():
         errs[name] = equal_outputs(kern(*args, **kw), plain(*args, **kw), torch)
+    captured["lane_rows"] = lane_rows
     for rec, kern, plain in ((recs[2], fs.fold_count_max, fs.fold_count_max_plain),
                              (recs[3], fs.ring_set, fs.ring_set_plain)):
         equal_outputs(kern(*rec.first[0], **rec.first[1]),
@@ -1180,9 +1517,196 @@ def phase_full(torch, report, scale, dev):
         captured["fold_count_max_typical"] = (typical, fs.fold_count_max,
                                               fs.fold_count_max_plain)
     sync(torch, dev)
-    log("full: each kernel == its plain version on captured superstep inputs; "
-        "hist_add + hist_max == fold_count_max")
+    log("full: each kernel == its plain version on captured superstep inputs "
+        "(paths d and e: each lane's largest launch); hist_add + hist_max == "
+        "fold_count_max")
     return captured, launches, errs
+
+
+def paths_hub_delta(torch, dev, full, g, S, expect, dt_pushpull, launches):
+    """Full-size paths d (the hub lane, push-pull) and e (a delta stream
+    under the stable key, push-only) on path a's graph ``g``; their launch
+    counts go into ``launches``. ``dt_pushpull`` is path a's push-pull
+    DegreeTriples result. Peak memory is read with path a's shards still
+    resident (``resident`` says how much that is). Each kernel of each
+    path is captured by lane (``LaneCapture``): returns, for each path,
+    kernel and lane, its launches there and host copies of its largest
+    launch's operands, as ``[dict(key, name, path, lane, launches,
+    entry)]``."""
+    from repro_torch.core.dodgr import HubTableCache, shard_delta, shard_dodgr
+    from repro_torch.core.engine import (finalize_epochs, survey_delta,
+                                         survey_push_pull)
+    from repro_torch.core.pushpull import plan_delta, plan_engine
+    from repro_torch.core.surveys import (DegreeTriples, SurveyBundle,
+                                          TriangleCount)
+    from repro_torch.kernels.fold_scatter import ops as fs
+    from repro_torch.kernels.wedge_check import ops as wc
+    from repro_torch.kernels.wedge_intersect import ops as wi
+
+    def capture(kernels):
+        """LaneCaptures of the path's kernels (wedge_check by lane)."""
+        mods = {"wedge_check": wc, "wedge_intersect": wi,
+                "fold_count_max": fs}
+        return [LaneCapture(mods[k], k, push_or_hub if k == "wedge_check"
+                            else None) for k in kernels]
+
+    def lane_rows_of(path, caps):
+        for c in caps:
+            c.restore()
+        out = []
+        for c in caps:
+            require(sum(v["launches"] for v in c.lanes.values())
+                    == launches[path][c.name] or dev.type != "cuda",
+                    f"{path}: {c.name} launches not all captured")
+            for lane, v in sorted(c.lanes.items()):
+                out.append(dict(key=f"{c.name}_{PATH_LETTERS[path]}_{lane}",
+                                name=c.name, path=path, lane=lane,
+                                launches=v["launches"], entry=v["largest"]))
+        return out
+
+    def copies(caps):
+        return sum(c.copy_s for c in caps)
+
+    # path d: the hub lane, push-pull, with the planner's θ
+    hub = full["hub"] = {}
+    hub_plans, hub_shards = {}, {}
+    for sname, survey in (("TriangleCount", TriangleCount()),
+                          ("DegreeTriples", DegreeTriples(capacity=4096))):
+        t0 = time.perf_counter()
+        cfg, rep = plan_engine(g, S, survey, mode="pushpull", push_cap=4096,
+                               pull_q_cap=16, hub_theta="auto",
+                               hub_wedge_cap=1 << 20)
+        plan_s = time.perf_counter() - t0
+        if cfg.hub_theta not in hub_shards:
+            t0 = time.perf_counter()
+            hub_shards[cfg.hub_theta] = shard_dodgr(
+                g, S, hub_theta=cfg.hub_theta, device=dev)[0]
+            sync(torch, dev)
+            hub[f"shard_s_theta_{cfg.hub_theta}"] = time.perf_counter() - t0
+        gr_h = hub_shards[cfg.hub_theta]
+        require(cfg.hub_theta == rep.hub_theta > 0
+                and gr_h.n_hubs == rep.n_hubs > 0, f"{sname}: hub set != plan")
+        require(cfg.n_hub_steps == -(-rep.hub_stream_max // cfg.hub_wedge_cap),
+                f"{sname}: hub steps != plan")
+        hub_plans[sname] = (survey, cfg, rep, gr_h)
+        hub[sname] = dict(
+            plan_s=plan_s, hub_theta=cfg.hub_theta, n_hubs=rep.n_hubs,
+            n_hub_steps=cfg.n_hub_steps, n_push_steps=cfg.n_push_steps,
+            n_pull_steps=cfg.n_pull_steps, pull_edge_cap=cfg.pull_edge_cap,
+            pull_row_cap=cfg.pull_row_cap,
+            hub_resolved_wedges=rep.hub_resolved_wedges,
+            hub_stream_max=rep.hub_stream_max,
+            hub_table_bytes=rep.hub_table_bytes)
+        log(f"plan hub {sname} pushpull: {hub[sname]}")
+
+    def hub_path():
+        for sname, (survey, cfg, rep, gr_h) in hub_plans.items():
+            sync(torch, dev)
+            resident = memory_reset(torch, dev)
+            c0 = copies(caps_d)
+            t0 = time.perf_counter()
+            res, st = survey_push_pull(gr_h, survey, cfg)
+            sync(torch, dev)
+            hub[sname].update(
+                survey_s=time.perf_counter() - t0, stats=st,
+                capture_s=copies(caps_d) - c0,
+                resident=resident, max_memory_allocated=peak_memory(torch, dev))
+            tag = f"hub path {sname}"
+            require(st["exact"], f"{tag}: inexact")
+            require(st["tris_hub"] > 0, f"{tag}: the hub lane closed nothing")
+            require(f32_near(st["wedges_hub"], rep.hub_resolved_wedges,
+                             cfg.n_hub_steps), f"{tag}: hub wedges != plan")
+            require(f32_near(st["wedges_pushed"], rep.pushpull_push_entries,
+                             cfg.n_push_steps), f"{tag}: pushed wedges != plan")
+            require(st["pull_requests"] == rep.pushpull_requests,
+                    f"{tag}: pull requests != plan")
+            if sname == "TriangleCount":
+                require(res == expect, f"{tag}: {res} != {expect}")
+            else:
+                require(same(res, dt_pushpull),
+                        f"{tag}: DegreeTriples != path a's push-pull")
+            log(f"survey {sname} pushpull hub: {hub[sname]['survey_s']:.2f} s "
+                f"({hub[sname]['capture_s']:.3f} s of it copying operands), "
+                f"tris push {st['tris_push']:.0f} hub {st['tris_hub']:.0f} "
+                f"pull {st['tris_pull']:.0f}, peak "
+                f"{hub[sname]['max_memory_allocated'] / 2**30:.2f} GiB with "
+                f"{resident / 2**30:.2f} GiB resident before")
+
+    caps_d = capture(PATH_KERNELS["hub"])
+    _, launches["hub"] = run_path(torch, dev, "hub", hub_path)
+    rows = lane_rows_of("hub", caps_d)
+    del hub_shards, hub_plans, gr_h
+
+    # path e: a delta stream under the stable key, push-only: the edges
+    # less a seeded 0.1% from an empty base, then the held-out edges
+    delta = full["delta"] = {}
+    rng = np.random.default_rng(3)
+    held = np.sort(rng.choice(g.m, g.m // 1000, replace=False))
+    keep = np.ones(g.m, bool)
+    keep[held] = False
+    base_e = empty_base(g)
+    survey_e = SurveyBundle([TriangleCount(), DegreeTriples(capacity=4096)])
+    t0 = time.perf_counter()
+    cache = HubTableCache(base_e)
+    delta["cache_seed_s"] = time.perf_counter() - t0
+    caps_e = capture(PATH_KERNELS["delta"])
+
+    def delta_path():
+        dg, state, tris = None, None, 0.0
+        adds = 0
+        for ep, idx in ((1, np.flatnonzero(keep)), (2, held)):
+            t0 = time.perf_counter()
+            dg = append(dg if dg is not None else base_e, g, idx)
+            cfg, rep = plan_delta(dg, S, survey_e, mode="push",
+                                  push_cap=65536, hub_theta="auto",
+                                  hub_wedge_cap=1 << 20)
+            plan_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            gr_e, _ = shard_delta(dg, S, hub_theta=cfg.hub_theta,
+                                  hub_cache=cache, device=dev)
+            sync(torch, dev)
+            shard_s = time.perf_counter() - t0
+            require(gr_e.n_hubs == rep.n_hubs > 0 and gr_e.hub_rows == "union",
+                    f"epoch {ep}: hub set != plan")
+            resident = memory_reset(torch, dev)
+            c0 = copies(caps_e)
+            t0 = time.perf_counter()
+            state, st = survey_delta(gr_e, survey_e, cfg, state)
+            sync(torch, dev)
+            wall = time.perf_counter() - t0
+            require(st["exact"] and st["tris_hub"] > 0,
+                    f"epoch {ep}: inexact or no hub triangle")
+            tris += st["tris_push"] + st["tris_hub"]
+            adds += cfg.n_push_steps + cfg.n_hub_steps
+            delta[f"epoch_{ep}"] = dict(
+                m_delta=dg.m_delta, frontier_edges=dg.frontier()[0].m,
+                plan_s=plan_s, shard_s=shard_s, survey_s=wall,
+                capture_s=copies(caps_e) - c0, hub_theta=cfg.hub_theta, n_hubs=rep.n_hubs,
+                n_hub_steps=cfg.n_hub_steps, n_push_steps=cfg.n_push_steps,
+                hub_len=gr_e.hub_len, d_plus_max=gr_e.d_plus_max,
+                gen_wedges=rep.gen_wedges, cache=dict(cache.last_build),
+                resident=resident, max_memory_allocated=peak_memory(torch, dev),
+                stats=st)
+            log(f"delta epoch {ep}: {delta[f'epoch_{ep}']}")
+            del gr_e
+        return finalize_epochs(survey_e, state), tris, adds
+
+    (res_e, tris_e, adds_e), launches["delta"] = run_path(
+        torch, dev, "delta", delta_path)
+    rows += lane_rows_of("delta", caps_e)
+    require({r["key"] for r in rows} >= {"wedge_check_d_hub",
+                                         "wedge_check_e_hub"}
+            or dev.type != "cuda", "no hub search was launched")
+    t_e = res_e["TriangleCount"]
+    require(t_e == expect, f"delta stream {t_e} != {expect}")
+    dt_e = counting_total(res_e["DegreeTriples"])
+    require(dt_e == expect, f"delta stream DegreeTriples total {dt_e} != {expect}")
+    require(f32_near(tris_e, expect, adds_e),
+            f"the epochs' tris_push + tris_hub {tris_e} != {expect}")
+    delta["tris_stat_sum"] = tris_e
+    log(f"delta stream: {expect} triangles after 2 epochs, DegreeTriples "
+        f"totals {dt_e}; launches {launches['delta']}")
+    return rows
 
 
 # the port's kernels as the profiler names them (fold_kernel: the fold body
@@ -1425,9 +1949,12 @@ def measure(torch, name, entry) -> dict:
 
 def phase_timing(torch, report, captured, launches, errs):
     rows = []
+    commons = {}
     for name, mod, _, source, replaces in KERNELS:
-        common = dict(name=name, route="cuda", source=source,
-                      replaces=replaces)
+        common = commons[name] = dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches_by_path={PATH_LETTERS[k]: v[name]
+                              for k, v in launches.items()})
         launched = launches[REPORTED_PATH[name]][name]
         if name in HIST_CALLERS:
             # where the launches are: each caller's modal (and largest)
@@ -1451,6 +1978,23 @@ def phase_timing(torch, report, captured, launches, errs):
                          **measure(torch, name, captured[name])))
         if shape:
             rows[-1].update(caller=None, fold=shape)
+    # paths d and e: each kernel's lanes at their largest launch, launches
+    # the lane's on that path
+    for lane in captured["lane_rows"]:
+        at = f"path {PATH_LETTERS[lane['path']]}" + {
+            "hub": ", hub search", "push": ", push lane"}.get(lane["lane"], "")
+        rows.append(dict(
+            commons[lane["name"]], launches=lane["launches"],
+            max_abs_err=errs[lane["key"]], at=f"{at}: its largest launch",
+            **measure(torch, lane["name"], captured[lane["key"]])))
+    # fold_count_max with rows of 16 words (no real call has that shape;
+    # launches are path a's)
+    rows.append(dict(commons["fold_count_max"],
+                     launches=launches["first"]["fold_count_max"],
+                     max_abs_err=errs["fold_count_max_w16"],
+                     at="path a's largest fold with rows of 16 words: no real call",
+                     **measure(torch, "fold_count_max",
+                               captured["fold_count_max_w16"])))
     ranked = sorted((r for r in rows if r.get("loss_s") is not None
                      and r["fold"] == "modal"), key=lambda r: -r["loss_s"])
     log("hist losses at the modal folds (launches x (ms - bound)): " + ", ".join(
@@ -1502,6 +2046,8 @@ def main() -> int:
     phase_build(torch, report)
     phase_kernels(torch, report, dev)
     phase_small(torch, report, dev)
+    phase_small_hub(torch, report, dev)
+    phase_small_delta(torch, report, dev)
     captured, launches, errs = phase_full(torch, report, FULL_SCALE, dev)
     kernels_line = {"kernels": phase_timing(torch, report, captured,
                                             launches, errs)}

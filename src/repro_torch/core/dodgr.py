@@ -17,7 +17,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.graphs.csr import HostGraph
+from repro_torch.graphs.csr import DeltaGraph, HostGraph
 from repro_torch.utils import bucket_cap, ceil_div, resolve_device, splitmix32_np
 
 PAD_ID = np.int32(2**31 - 1)  # sentinel target id for padded edge slots
@@ -96,10 +96,12 @@ class ShardedDODGr:
     vmeta_f: torch.Tensor    # [S, n_loc, dvf] f32
     vdeg: torch.Tensor       # [S, n_loc] i32 full degree of local vertex
     dplus: torch.Tensor      # [S, n_loc] i32 out-degree of local vertex
-    # --- delta overlay (carried; the delta engine is not ported yet) ---
-    nbr_new: torch.Tensor    # [S, e_cap] bool
-    delta_gen: torch.Tensor  # [S, e_cap] bool
-    # --- hub delegation tables (carried; the hub lane is not ported yet) ---
+    # --- delta overlay (epoch-aware ingestion) ---
+    nbr_new: torch.Tensor    # [S, e_cap] bool: edge arrived this epoch
+    delta_gen: torch.Tensor  # [S, e_cap] bool: edge may open a new-triangle wedge
+    # --- hub delegation: the Adj₊ rows of every vertex of degree ≥
+    # hub_theta, replicated (no shard axis), so wedges centred on a hub
+    # close on the source shard ---
     nbr_hub: torch.Tensor      # [S, e_cap] i32 hub-table row of target, -1 if none
     hub_row_len: torch.Tensor  # [Hc] i32
     hub_nbr: torch.Tensor      # [Hc, hub_len] i32
@@ -202,6 +204,175 @@ def delta_gen_mask(q_s: np.ndarray, row_start: np.ndarray, row_len: np.ndarray,
     return new_s | suffix_new | (t_q & suffix_touched)
 
 
+class HubTableCache:
+    """Replicate-once, refresh-on-touch hub tables across delta epochs.
+
+    Keeps the oriented union adjacency on the host (seeded once from the
+    base graph, then advanced by each epoch's overlay in O(batch) inserts)
+    and serves hub rows out of it: an untouched hub's row is copied as it
+    is (the stable key ``(0, hash(v), v)`` never moves and metadata is
+    immutable); a touched hub's row already holds the inserted edges, and
+    only its newness flags are recomputed against the epoch's delta edges.
+
+    Served rows are the hub's full union ``Adj₊``, a superset of the
+    frontier row a rebuild would give. The delta engine stays exact: an
+    extra table hit closes a triangle whose three edges are old (a new
+    ``pq`` or ``pr`` puts ``q`` and ``r`` in the touched set, so ``qr`` is
+    in the frontier row too), and the hub fold's ≥ 1-new-edge mask drops
+    exactly those. Requires ``orient="stable"``: under the degree key rows
+    reorder, and the hub set moves, as batches arrive.
+    """
+
+    def __init__(self, base: HostGraph, orient: str = "stable"):
+        if orient != "stable":
+            raise ValueError(
+                "HubTableCache requires orient='stable': union rows are "
+                "only epoch-stable under the (0, hash, id) key — the "
+                f"degree key reorders rows as batches arrive (got "
+                f"{orient!r})")
+        self.orient = orient
+        self.at_epoch = 0         # the last overlay folded in
+        self.rows_reused = 0      # cumulative: rows served as they were
+        self.rows_refreshed = 0   # cumulative: rows with newness recomputed
+        self.last_build: dict = {}
+        self._rows: dict[int, dict] = {}   # pivot -> sorted union Adj₊ row
+        self._vmeta_i = np.asarray(base.vmeta_i)
+        self._vmeta_f = np.asarray(base.vmeta_f)
+        self._dei, self._def = base.spec.dei, base.spec.def_
+        self._new_keys = np.zeros(0, np.int64)   # this epoch's delta edges
+        self._touched_pivots: set = set()
+        self._ingest(base.src, base.dst, base.emeta_i, base.emeta_f)
+
+    @staticmethod
+    def _orient_stable(src, dst):
+        """Per-edge stable orientation, :func:`orient_edges`'s with the
+        zero degree component."""
+        src = np.asarray(src, np.int64)
+        dst = np.asarray(dst, np.int64)
+        h_u = splitmix32_np(src.astype(np.uint32)).astype(np.int64)
+        h_v = splitmix32_np(dst.astype(np.uint32)).astype(np.int64)
+        u_first = (h_u < h_v) | ((h_u == h_v) & (src < dst))
+        p = np.where(u_first, src, dst)
+        q = np.where(u_first, dst, src)
+        hq = np.where(u_first, h_v, h_u)
+        return p, q, hq
+
+    def _ingest(self, src, dst, emeta_i, emeta_f) -> np.ndarray:
+        """Insert oriented edges into their pivot rows, each row kept
+        sorted by (hash, id), the shard layer's order within a row.
+        Returns the distinct pivots whose rows changed."""
+        if len(src) == 0:
+            return np.zeros(0, np.int64)
+        p, q, hq = self._orient_stable(src, dst)
+        emeta_i = np.asarray(emeta_i, np.int32).reshape(len(p), self._dei)
+        emeta_f = np.asarray(emeta_f, np.float32).reshape(len(p), self._def)
+        order = np.lexsort((q, hq, p))
+        p, q, hq = p[order], q[order], hq[order]
+        emeta_i, emeta_f = emeta_i[order], emeta_f[order]
+        piv, starts = np.unique(p, return_index=True)
+        bounds = np.append(starts, len(p))
+        for i, v in enumerate(piv):
+            lo, hi = bounds[i], bounds[i + 1]
+            add = dict(nbr=q[lo:hi], h=hq[lo:hi].astype(np.uint32),
+                       eqr_i=emeta_i[lo:hi], eqr_f=emeta_f[lo:hi])
+            row = self._rows.get(int(v))
+            if row is None:
+                self._rows[int(v)] = add
+                continue
+            nbr = np.concatenate([row["nbr"], add["nbr"]])
+            h = np.concatenate([row["h"], add["h"]])
+            srt = np.lexsort((nbr, h.astype(np.int64)))
+            self._rows[int(v)] = dict(
+                nbr=nbr[srt], h=h[srt],
+                eqr_i=np.concatenate([row["eqr_i"], add["eqr_i"]])[srt],
+                eqr_f=np.concatenate([row["eqr_f"], add["eqr_f"]])[srt])
+        return piv
+
+    def advance(self, dg: DeltaGraph) -> None:
+        """Fold one epoch's overlay into the union rows. Idempotent at the
+        current epoch; epochs must arrive in order, with no gap."""
+        if dg.epoch == self.at_epoch:
+            return
+        if dg.epoch != self.at_epoch + 1:
+            raise ValueError(
+                f"HubTableCache is at epoch {self.at_epoch} but the delta "
+                f"graph is at epoch {dg.epoch}; advance() must see every "
+                "epoch in order")
+        piv = self._ingest(dg.d_src, dg.d_dst, dg.d_emeta_i, dg.d_emeta_f)
+        p, q, _ = self._orient_stable(dg.d_src, dg.d_dst)
+        # sorted once, so that build() looks rows up by binary search (an
+        # isin a row re-sorts the whole batch: minutes for a 3.8 M-edge one)
+        self._new_keys = np.sort((p << np.int64(32)) | q)
+        self._touched_pivots = set(int(v) for v in piv)
+        # the vertex set may have grown; existing rows of vmeta never change
+        self._vmeta_i = np.asarray(dg.base.vmeta_i)
+        self._vmeta_f = np.asarray(dg.base.vmeta_f)
+        self.at_epoch = dg.epoch
+
+    def build(self, hub_ids: np.ndarray) -> dict:
+        """The replicated ``hub_*`` arrays of this epoch's hub set, from the
+        cached union rows: the ``hub_tables`` argument of
+        :func:`shard_dodgr`. Untouched rows are served as they are
+        (``rows_reused``); touched rows get their newness recomputed
+        (``rows_refreshed``)."""
+        hub_ids = np.asarray(hub_ids, np.int64)
+        n_hubs = len(hub_ids)
+        hc = max(1, n_hubs)
+        rows = [self._rows.get(int(v)) for v in hub_ids]
+        lens = [0 if r is None else len(r["nbr"]) for r in rows]
+        hub_len = max(1, max(lens, default=1))
+        dvi, dvf = self._vmeta_i.shape[1], self._vmeta_f.shape[1]
+        t = dict(
+            hub_row_len=np.zeros(hc, np.int32),
+            hub_nbr=np.full((hc, hub_len), PAD_ID, np.int32),
+            hub_nbr_d=np.full((hc, hub_len), PAD_D, np.int32),
+            hub_nbr_h=np.zeros((hc, hub_len), np.uint32),
+            hub_nbr_new=np.zeros((hc, hub_len), bool),
+            hub_eqr_i=np.zeros((hc, hub_len, self._dei), np.int32),
+            hub_eqr_f=np.zeros((hc, hub_len, self._def), np.float32),
+            hub_tmeta_i=np.zeros((hc, hub_len, dvi), np.int32),
+            hub_tmeta_f=np.zeros((hc, hub_len, dvf), np.float32),
+            hub_vmeta_i=np.zeros((hc, dvi), np.int32),
+            hub_vmeta_f=np.zeros((hc, dvf), np.float32),
+        )
+        reused = refreshed = 0
+        for i, (v, row) in enumerate(zip(hub_ids, rows)):
+            if row is None:
+                reused += 1
+                continue
+            k = lens[i]
+            t["hub_row_len"][i] = k
+            t["hub_nbr"][i, :k] = row["nbr"]
+            t["hub_nbr_d"][i, :k] = 0   # stable key: degree component is 0
+            t["hub_nbr_h"][i, :k] = row["h"]
+            t["hub_eqr_i"][i, :k] = row["eqr_i"]
+            t["hub_eqr_f"][i, :k] = row["eqr_f"]
+            t["hub_tmeta_i"][i, :k] = self._vmeta_i[row["nbr"]]
+            t["hub_tmeta_f"][i, :k] = self._vmeta_f[row["nbr"]]
+            if int(v) in self._touched_pivots:
+                key = (np.int64(v) << np.int64(32)) | row["nbr"]
+                at = np.searchsorted(self._new_keys, key)
+                t["hub_nbr_new"][i, :k] = self._new_keys[
+                    np.minimum(at, len(self._new_keys) - 1)] == key
+                refreshed += 1
+            else:
+                reused += 1
+        if n_hubs:
+            t["hub_vmeta_i"][:n_hubs] = self._vmeta_i[hub_ids]
+            t["hub_vmeta_f"][:n_hubs] = self._vmeta_f[hub_ids]
+        self.rows_reused += reused
+        self.rows_refreshed += refreshed
+        self.last_build = dict(epoch=self.at_epoch, n_hubs=n_hubs,
+                               rows_reused=reused, rows_refreshed=refreshed)
+        t.update(hub_ids=hub_ids, hub_len=hub_len, hub_rows="union")
+        return t
+
+    def nbytes(self) -> int:
+        """Host bytes of the cached union rows."""
+        return sum(int(a.nbytes) for row in self._rows.values()
+                   for a in row.values())
+
+
 def shard_dodgr(g: HostGraph, S: int, e_cap: int | None = None,
                 sample_p: float = 1.0, sample_seed: int = 0,
                 edge_new: np.ndarray | None = None, orient: str = "degree",
@@ -221,8 +392,8 @@ def shard_dodgr(g: HostGraph, S: int, e_cap: int | None = None,
     ``sample_p`` ingests a DOULION view, ``edge_new`` a delta frontier,
     ``hub_theta ≥ 1`` builds the replicated hub tables, ``cap_policy=
     "bucket"`` rounds ``e_cap``/``d_plus_max``/``hub_len`` up to the
-    bucket grid. The engine runs only the static survey so far: delta
-    frontiers and hub tables are built but not yet surveyed.
+    bucket grid, ``hub_tables`` (a :meth:`HubTableCache.build` result)
+    substitutes cache-served union rows for the inline hub-table build.
     """
     dev = resolve_device(device)
     if cap_policy not in ("exact", "bucket"):
@@ -423,6 +594,44 @@ def shard_dodgr(g: HostGraph, S: int, e_cap: int | None = None,
         epoch=epoch, is_delta=edge_new is not None, hub_theta=hub_theta,
         n_hubs=n_hubs, hub_len=hub_len, hub_rows=hub_rows)
     return dodgr_from_arrays(arrays, meta, dev), stats
+
+
+def shard_delta(dg: DeltaGraph, S: int, e_cap: int | None = None,
+                orient: str = "stable",
+                hub_theta: int = 0,
+                hub_cache: HubTableCache | None = None,
+                cap_policy: str = "exact",
+                e_cap_floor: int = 0,
+                d_plus_max_floor: int = 0,
+                device=None,
+                ) -> tuple[ShardedDODGr, RoutingStats]:
+    """Shard the epoch's delta frontier with the snapshot's cyclic owner
+    map and stamp its epoch; ``device`` as in :func:`shard_dodgr`.
+
+    The default orientation is the epoch-stable key, which every epoch of
+    a delta sequence must share for ``merge_epochs`` to equal a full
+    recompute bit for bit. ``hub_theta`` replicates heavy frontier rows
+    (degree in the frontier); pass ``plan_delta``'s ``cfg.hub_theta``.
+    ``hub_cache`` (a :class:`HubTableCache` seeded from the stream's base)
+    serves the hub rows from the cache, advanced to this epoch, instead
+    of rebuilding them; it requires ``orient="stable"``.
+    """
+    h, edge_new = dg.frontier()
+    hub_tables = None
+    if hub_cache is not None and hub_theta >= 1:
+        if orient != "stable":
+            raise ValueError(
+                "shard_delta(hub_cache=...) requires orient='stable' — "
+                "union hub rows are only epoch-stable under the "
+                f"(0, hash, id) key (got {orient!r})")
+        hub_cache.advance(dg)
+        hub_tables = hub_cache.build(
+            np.nonzero(h.degrees() >= hub_theta)[0])
+    return shard_dodgr(h, S, e_cap=e_cap, edge_new=edge_new, orient=orient,
+                       epoch=dg.epoch, hub_theta=hub_theta,
+                       hub_tables=hub_tables, cap_policy=cap_policy,
+                       e_cap_floor=e_cap_floor,
+                       d_plus_max_floor=d_plus_max_floor, device=device)
 
 
 def dodgr_from_arrays(arrays: dict, meta: dict, device) -> ShardedDODGr:

@@ -31,12 +31,25 @@ versions. ``EngineConfig.use_pallas`` and ``pallas_interpret`` are kept so
 configurations compare field by field with the JAX package, whose
 ``plan_engine`` defaults to ``use_pallas=False``; they choose nothing here.
 
+Hub superstep: wedges whose centre q has degree ≥ the plan's
+``hub_theta`` reach neither wire lane. q's ``Adj₊`` row is replicated on
+every shard (``shard_dodgr(hub_theta=θ)``), so the source shard closes the
+wedge against the hub table (one ``wedge_check`` launch over the table
+flattened to one key row) and folds locally.
+
+Delta mode (``EngineConfig.delta``): the graph is a delta frontier
+(``shard_delta``) and the same lanes run restricted. Wedge generation is
+masked to the ``delta_gen`` edges, push entries and pulled rows carry
+per-edge newness bits, and a triangle is folded only where one of its
+edges is new. ``survey_delta`` accumulates epochs through
+``Survey.merge_epochs``; ``finalize_epochs`` renders the running state.
+
 Stats are float32 sums, as in the JAX package: each superstep adds one
 exact integer per stat, in the same order, so the values agree bit for bit
 (and round the same way once a total passes 2²⁴).
 
-Not ported yet (each raises ``NotImplementedError`` naming ROADMAP.md):
-the hub lane, delta epochs, the mesh transport.
+Not ported yet (raises ``NotImplementedError`` naming ROADMAP.md): the
+mesh transport.
 """
 from __future__ import annotations
 
@@ -87,7 +100,7 @@ class EngineConfig:
     sample_seed: int = 0
     project_meta: bool = True     # lane-project metadata to the survey's MetaSpec
     meta_widths: tuple | None = None  # (w_push, w_row, w_hdr, w_req) words
-    delta: bool = False           # epoch-incremental mode (not ported yet)
+    delta: bool = False           # epoch-incremental mode
     epoch: int = 0
     orient: str = "degree"
     transport: str = "dense"      # "dense" | "ragged" ("mesh" not ported yet)
@@ -95,7 +108,7 @@ class EngineConfig:
     pull_caps: tuple | None = None  # ragged: S×S pulled-group slots per (src, dest)
     pull_row_cap: int = 0         # reply-row padding (0 = d_plus_max)
     hub_theta: int = 0            # hub delegation threshold θ (0 = off)
-    n_hub_steps: int = 0          # hub-lane supersteps (lane not ported yet)
+    n_hub_steps: int = 0          # hub-lane supersteps (0 = lane off)
     hub_wedge_cap: int = 256
     on_overflow: str = "warn"     # "warn" | "raise"
     cap_policy: str = "exact"     # "exact" | "bucket" (host bookkeeping)
@@ -172,10 +185,12 @@ def _stream_setup(gr: ShardedDODGr, weight_mask=None) -> dict:
 
 
 def _gen_push_queries(gr: ShardedDODGr, st: dict, t: int, exch: Exchange,
-                      spec: MetaSpec) -> dict:
+                      spec: MetaSpec, delta: bool = False) -> dict:
     """Flat [S, out_cap] wire buffers of push queries for superstep ``t``:
     slot j of shard s is rank ``t·cap(s,d) + lane(j)`` of the dest-d wedge
-    stream. Metadata travels in wire form (declared lanes only)."""
+    stream. Metadata travels in wire form (declared lanes only); in delta
+    mode one more word carries the newness of the wedge's edges pq and
+    pr."""
     S, E, n_loc = gr.S, gr.e_cap, gr.n_loc
     dev = gr.device
     dest_of = exch.tensor("dest_of", dev)
@@ -192,7 +207,7 @@ def _gen_push_queries(gr: ShardedDODGr, st: dict, t: int, exch: Exchange,
     r_pos = (e + 1 + o).clamp(0, E - 1)
     p = torch.gather(gr.edge_src, 1, e)
     lp = (p // S).clamp(0, n_loc - 1)
-    return dict(
+    out = dict(
         q=torch.gather(gr.nbr, 1, e), r=torch.gather(gr.nbr, 1, r_pos),
         rd=torch.gather(gr.nbr_d, 1, r_pos), rh=torch.gather(gr.nbr_h, 1, r_pos),
         p=p,
@@ -204,6 +219,10 @@ def _gen_push_queries(gr: ShardedDODGr, st: dict, t: int, exch: Exchange,
         epr_f=_take(project_lanes(gr.emeta_f, spec.e_pr_f), r_pos),
         ok=in_stream,
     )
+    if delta:
+        out["new2"] = (torch.gather(gr.nbr_new, 1, e).to(torch.int32)
+                       | (torch.gather(gr.nbr_new, 1, r_pos).to(torch.int32) << 1))
+    return out
 
 
 def _answer_push_queries(gr: ShardedDODGr, qr: dict, cfg: EngineConfig,
@@ -222,6 +241,9 @@ def _answer_push_queries(gr: ShardedDODGr, qr: dict, cfg: EngineConfig,
     # JAX package (every ok slot carries a real vertex id)
     found = (qr["ok"] & (pos < hi) & (_take(gr.nbr, pos_c) == qr["r"])
              & (qr["p"] >= 0))
+    if cfg.delta:
+        # fold only the three new-triangle classes: pq, pr or qr new
+        found &= (qr["new2"] != 0) | _take(gr.nbr_new, pos_c)
     return TriangleBatch(
         p=qr["p"], q=qr["q"], r=qr["r"],
         vp_i=expand_lanes(qr["vp_i"], spec.vp_i),
@@ -241,12 +263,94 @@ def _answer_push_queries(gr: ShardedDODGr, qr: dict, cfg: EngineConfig,
 
 
 # ---------------------------------------------------------------------------
+# hub lane (zero-exchange wedge closure against the replicated hub table)
+
+
+def _hub_setup(st: dict, hub_mask: torch.Tensor) -> dict:
+    """Per-shard hub-wedge streams: the inclusive cumsum of each edge's hub
+    wedge count in edge order (nothing is routed), and its total."""
+    cum = torch.cumsum(st["suffix"] * hub_mask.to(torch.int32), 1,
+                       dtype=torch.int32)
+    return dict(cum=cum, total=cum[:, -1])
+
+
+def _hub_superstep(gr: ShardedDODGr, hst: dict, t: int, cfg: EngineConfig,
+                   spec: MetaSpec):
+    """Close one window of hub-centred wedges on the source shards: wedge
+    (p; q, r) with hub centre q is looked up in the replicated row of q
+    (one ``wedge_check`` launch for all S shards, over the hub table
+    flattened to one key row), and meta(q), meta(r) and meta(qr) come from
+    the table. Returns the [S, hub_wedge_cap] TriangleBatch and the count
+    of wedges it checked. The search's positions are int32: a table of
+    2³¹ keys or more raises."""
+    S, E, n_loc = gr.S, gr.e_cap, gr.n_loc
+    Hc, Lh = gr.hub_nbr.shape
+    if Hc * Lh >= 2**31:
+        raise ValueError(
+            f"hub table of {Hc} rows x {Lh} keys = {Hc * Lh} keys: the hub "
+            "search addresses it as one row with int32 positions, at most "
+            "2**31 - 1 keys; raise hub_theta for fewer hubs")
+    cap = cfg.hub_wedge_cap
+    rank = t * cap + _arange_rows(S, cap, gr.device)
+    ok = rank < hst["total"][:, None]
+    idx = torch.searchsorted(hst["cum"], rank, right=True, out_int32=True)
+    e = idx.clamp(0, E - 1)
+    o = (rank - _lookup(hst["cum"], e)).clamp(0, E - 1)
+    e = e.long()
+    r_pos = (e + 1 + o).clamp(0, E - 1)
+    p = torch.gather(gr.edge_src, 1, e)
+    lp = (p // S).clamp(0, n_loc - 1)
+    hid = torch.gather(gr.nbr_hub, 1, e).clamp(0, Hc - 1).long()
+    lo = (hid * Lh).to(torch.int32)
+    hi = lo + gr.hub_row_len[hid]
+    r = torch.gather(gr.nbr, 1, r_pos)
+    h_nbr = gr.hub_nbr.reshape(1, -1)
+    pos = wc_ops.wedge_check(
+        gr.hub_nbr_d.reshape(1, -1), gr.hub_nbr_h.reshape(1, -1), h_nbr,
+        lo.reshape(1, -1), hi.reshape(1, -1),
+        torch.gather(gr.nbr_d, 1, r_pos).reshape(1, -1),
+        torch.gather(gr.nbr_h, 1, r_pos).reshape(1, -1),
+        r.reshape(1, -1)).view(S, cap)
+    pos_c = pos.clamp(0, Hc * Lh - 1).long()
+    found = ok & (pos < hi) & (h_nbr[0][pos_c] == r)
+    if cfg.delta:
+        found &= (torch.gather(gr.nbr_new, 1, e)
+                  | torch.gather(gr.nbr_new, 1, r_pos)
+                  | gr.hub_nbr_new.reshape(-1)[pos_c])
+
+    def hub_rows(x, lanes):      # [Hc, Lh, k] table rows at pos
+        x = narrow_lanes(x, lanes)
+        return x.reshape(Hc * Lh, x.shape[-1])[pos_c]
+
+    tri = TriangleBatch(
+        p=p, q=torch.gather(gr.nbr, 1, e), r=r,
+        vp_i=_take(narrow_lanes(gr.vmeta_i, spec.vp_i), lp),
+        vq_i=narrow_lanes(gr.hub_vmeta_i, spec.vq_i)[hid],
+        vr_i=hub_rows(gr.hub_tmeta_i, spec.vr_i),
+        vp_f=_take(narrow_lanes(gr.vmeta_f, spec.vp_f), lp),
+        vq_f=narrow_lanes(gr.hub_vmeta_f, spec.vq_f)[hid],
+        vr_f=hub_rows(gr.hub_tmeta_f, spec.vr_f),
+        e_pq_i=_take(narrow_lanes(gr.emeta_i, spec.e_pq_i), e),
+        e_pr_i=_take(narrow_lanes(gr.emeta_i, spec.e_pr_i), r_pos),
+        e_qr_i=hub_rows(gr.hub_eqr_i, spec.e_qr_i),
+        e_pq_f=_take(narrow_lanes(gr.emeta_f, spec.e_pq_f), e),
+        e_pr_f=_take(narrow_lanes(gr.emeta_f, spec.e_pr_f), r_pos),
+        e_qr_f=hub_rows(gr.hub_eqr_f, spec.e_qr_f),
+        valid=found,
+    )
+    return tri, ok.sum()
+
+
+# ---------------------------------------------------------------------------
 # pull lane (Sec. 4.4)
 
 
-def _pull_setup(gr: ShardedDODGr, st: dict, cfg: EngineConfig, widths) -> dict:
+def _pull_setup(gr: ShardedDODGr, st: dict, cfg: EngineConfig, widths,
+                hub_mask=None) -> dict:
     """Per-shard pull decisions + dest-major (dest, pulled, q) edge order,
-    [S, ...] per field:
+    [S, ...] per field. ``st["suffix"]`` must already be masked to the
+    wedges the plan generates (delta mask, hub exclusion); groups centred
+    on a hub (``hub_mask``) are never pulled.
 
       pull        [E] bool, per edge slot (original order)
       ord2        [E] edge permutation sorted by (dest, ~pull, q, pos)
@@ -265,6 +369,7 @@ def _pull_setup(gr: ShardedDODGr, st: dict, cfg: EngineConfig, widths) -> dict:
     qs = torch.gather(gr.nbr, 1, ordq)
     sfx = torch.gather(st["suffix"], 1, ordq)
     vq = torch.gather(valid, 1, ordq)
+    vq_pull = vq if hub_mask is None else vq & ~torch.gather(hub_mask, 1, ordq)
     ones = torch.ones((S, 1), dtype=torch.bool, device=dev)
     first = torch.cat([ones, qs[:, 1:] != qs[:, :-1]], 1) & vq
     gid = torch.cumsum(first.to(torch.int32), 1, dtype=torch.int32) - 1
@@ -273,9 +378,9 @@ def _pull_setup(gr: ShardedDODGr, st: dict, cfg: EngineConfig, widths) -> dict:
     vol_e = torch.gather(vol, 1, gid)
     dq = torch.gather(gr.nbr_dplus, 1, ordq)
     if cfg.cost_model == "entries":
-        pull_s = vq & (dq < vol_e)
+        pull_s = vq_pull & (dq < vol_e)
     else:
-        pull_s = vq & (dq * w_row + w_hdr + w_req < vol_e * w_push)
+        pull_s = vq_pull & (dq * w_row + w_hdr + w_req < vol_e * w_push)
     pull = torch.zeros((S, E), dtype=torch.bool, device=dev).scatter_(1, ordq, pull_s)
 
     # (dest, ~pull, q, pos) order: stable sort of the q-sorted order by
@@ -346,6 +451,8 @@ def _pull_wire(gr: ShardedDODGr, ps: dict, t: int, cfg: EngineConfig,
         vq_f=_take(project_lanes(gr.vmeta_f, spec.vq_f), lq),
         ln=ln, ok=ok,
     )
+    if cfg.delta:
+        rep["r_new"] = mask & _take(gr.nbr_new, slots)
     rep = exch.gather(rep)
     # off the wire: re-expand shipped lanes to fold form
     rep.update(
@@ -385,6 +492,9 @@ def _pull_window(gr: ShardedDODGr, ps: dict, t: int, cfg: EngineConfig,
     j_c = j.clamp(0, E - 1).long()
     e = ps["ord2"][s][j_c]                                  # original edge slot
     ok_e &= ps["pull"][s][e]
+    if cfg.delta:
+        # a pulled edge outside the delta_gen mask seeds no new triangle
+        ok_e &= gr.delta_gen[s][e]
     slot = qrank2[j_c] - qbase[:, None] - t * pcap[:, None]
     slot = torch.minimum(slot.clamp_min(0), (pcap - 1).clamp_min(0)[:, None])
     ridx = (boff[:, None] + slot).clamp(0, exch.out_cap - 1).long()
@@ -451,6 +561,12 @@ def _pull_compute(gr: ShardedDODGr, ps: dict, t: int, cfg: EngineConfig,
            & (torch.gather(rp["r_nbr"], 2, pos_c) == ci))
     del pos
     B = S * ecap * L
+    kk = torch.arange(L, device=e.device)
+    if cfg.delta:
+        nbr_new = gr.nbr_new[s]
+        hit &= (nbr_new[e][..., None]
+                | nbr_new[(e[..., None] + 1 + kk).clamp(0, E - 1)]
+                | torch.gather(rp["r_new"], 2, pos_c))
 
     def bcast(x):          # [S, ecap, ...] → [B, ...], constant over L
         tail = tuple(x.shape[2:])
@@ -467,7 +583,6 @@ def _pull_compute(gr: ShardedDODGr, ps: dict, t: int, cfg: EngineConfig,
         x = narrow_lanes(x, lanes)[s]
         if x.shape[-1] == 0:
             return x.new_zeros((B, 0))
-        kk = torch.arange(L, device=e.device)
         return x[(e[..., None] + 1 + kk).clamp(0, E - 1)].reshape(B, -1)
 
     tri = TriangleBatch(
@@ -533,36 +648,56 @@ def _survey_body(gr: ShardedDODGr, survey: Survey, cfg: EngineConfig,
     states (a list, one per shard) and the stats."""
     S = gr.S
     dev = gr.device
-    if cfg.delta:
-        raise NotImplementedError(
-            f"delta epochs are not ported yet ({_ROADMAP}, Queue 1 item 6)")
-    if cfg.n_hub_steps > 0 and gr.n_hubs > 0:
-        raise NotImplementedError(
-            f"the hub lane is not ported yet ({_ROADMAP}, Queue 1 item 6)")
     states = [survey.init(dev) for _ in range(S)]
 
     mw = cfg.meta_widths
     if mw is None:
         mw = meta_widths(*spec.lane_counts())
+        if cfg.delta:   # newness bits on the wire (as plan_engine counts them)
+            mw = (mw[0] + 1, mw[1] + 1, mw[2], mw[3])
     w_push, w_row, w_hdr, w_req = mw
+
+    hub_on = cfg.n_hub_steps > 0 and gr.n_hubs > 0
+    is_hub = (gr.nbr_hub >= 0) if hub_on else None
+    gen = gr.delta_gen if cfg.delta else None
 
     stats = _F32Stats()
     push_caps = push_exch.tensor("caps", dev)
     if cfg.mode == "pushpull":
-        ps = _pull_setup(gr, _stream_setup(gr), cfg, mw)
-        st = _stream_setup(gr, weight_mask=~ps["pull"])
+        st0 = _stream_setup(gr)
+        sfx = st0["suffix"]
+        if cfg.delta:
+            # pull decisions weigh only the wedges the delta mask generates
+            sfx = sfx * gen
+        if hub_on:
+            # hub-centred groups carry no pullable volume
+            sfx = sfx * ~is_hub
+        ps = _pull_setup(gr, dict(st0, suffix=sfx), cfg, mw, hub_mask=is_hub)
+        push_mask = ~ps["pull"]
+        if cfg.delta:
+            push_mask &= gen
+        if hub_on:
+            push_mask &= ~is_hub
+        st = _stream_setup(gr, weight_mask=push_mask)
         pull_caps = pull_exch.tensor("caps", dev)
         stats.add("stream_dropped",
                   (ps["qcount"] - cfg.n_pull_steps * pull_caps).clamp_min(0).sum())
     else:
         ps = None
-        st = _stream_setup(gr)
+        wm = gen
+        if hub_on:
+            wm = ~is_hub if gen is None else gen & ~is_hub
+        st = _stream_setup(gr, weight_mask=wm)
     stats.add("stream_dropped",
               (st["stream_len"] - cfg.n_push_steps * push_caps).clamp_min(0).sum())
+    if hub_on:
+        hst = _hub_setup(st, is_hub if gen is None else is_hub & gen)
+        stats.add("stream_dropped",
+                  (hst["total"] - cfg.n_hub_steps * cfg.hub_wedge_cap).clamp_min(0).sum())
 
     push_step_words = push_exch.round_slots() * w_push
     for t in range(cfg.n_push_steps):
-        qr = _gen_push_queries(gr, st, t, push_exch, spec)
+        qr = _gen_push_queries(gr, st, t, push_exch, spec, delta=cfg.delta)
         n_gen = qr["ok"].sum()
         qx = push_exch.scatter(qr)
         qx["ok"] = push_exch.apply_recv_ok(qx["ok"])
@@ -572,6 +707,14 @@ def _survey_body(gr: ShardedDODGr, survey: Survey, cfg: EngineConfig,
         stats.add("wedges_pushed", n_gen)
         stats.add("tris_push", tri.valid.sum())
         stats.add("wire_push_words", push_step_words)
+
+    for t in range(cfg.n_hub_steps if hub_on else 0):
+        tri, n_w = _hub_superstep(gr, hst, t, cfg, spec)
+        for s in range(S):
+            states[s] = survey.update(states[s], tri.shard(s))
+        stats.add("wedges_hub", n_w)
+        stats.add("tris_hub", tri.valid.sum())
+        del tri
 
     if cfg.mode == "pushpull" and cfg.n_pull_steps > 0:
         Lr = cfg.pull_row_cap if cfg.pull_row_cap else gr.d_plus_max
@@ -650,8 +793,8 @@ def _exactness_guard(cfg: EngineConfig, stats: dict) -> dict:
             f"{int(stats.get('stream_dropped', 0))} stream slot(s) overflowed "
             "their static capacities and were dropped, so triangles are "
             "undercounted. Use the capacities planned by "
-            "pushpull.plan_engine (they size every window exactly), or pass "
-            "on_overflow='raise' to fail fast.")
+            "pushpull.plan_engine/plan_delta (they size every window "
+            "exactly), or pass on_overflow='raise' to fail fast.")
         if cfg.on_overflow == "raise":
             raise RuntimeError(msg)
         warnings.warn(msg, RuntimeWarning, stacklevel=3)
@@ -712,7 +855,7 @@ def _check_provenance(gr: ShardedDODGr, cfg: EngineConfig):
         diffs.append(
             f"hub mismatch: graph sharded with hub_theta={gr.hub_theta} but "
             f"plan built with hub_theta={cfg.hub_theta}; pass the planner's "
-            "θ (cfg.hub_theta) to shard_dodgr")
+            "θ (cfg.hub_theta) to shard_dodgr/shard_delta")
     if cfg.delta and gr.is_delta and gr.epoch != cfg.epoch:
         diffs.append(
             f"epoch mismatch: frontier is epoch {gr.epoch} but the plan was "
@@ -737,3 +880,49 @@ def survey_push_pull(gr: ShardedDODGr, survey: Survey, cfg: EngineConfig,
     cfg = replace(cfg, mode="pushpull")
     merged, stats = make_survey_fn(survey, cfg, mesh=mesh)(gr)
     return _finalize_run(survey, cfg, merged, stats)
+
+
+# ---------------------------------------------------------------------------
+# epoch-incremental entry point (delta engine)
+
+
+def survey_delta(gr: ShardedDODGr, survey: Survey, cfg: EngineConfig,
+                 prev_state=None, mesh=None):
+    """One incremental epoch: traverse the delta frontier ``gr``, folding
+    only the triangles with an edge of this epoch's batch, then accumulate
+    into ``prev_state`` through the survey's ``merge_epochs``.
+
+    ``cfg`` comes from ``pushpull.plan_delta`` for the same epoch
+    (provenance is checked). Returns ``(state, stats)``: the merged, not
+    finalized, accumulator, to pass back as ``prev_state`` next epoch and
+    to render with :func:`finalize_epochs`. After K epochs the rendering
+    equals one survey of the union, bit for bit, for every built-in.
+    """
+    if not cfg.delta:
+        raise ValueError("survey_delta needs a delta plan — build cfg with "
+                         "pushpull.plan_delta(dg, S, survey, ...)")
+    if cfg.sample_p < 1.0:
+        raise ValueError("DOULION sampling is not supported on delta epochs; "
+                         "sample the full snapshot instead")
+    _check_provenance(gr, cfg)
+    if prev_state is not None and cfg.determinism == "order_sensitive":
+        warnings.warn(
+            "survey_delta: the plan's survey was classified "
+            "order_sensitive by the determinism stamp "
+            "(repro_torch.analysis.contracts) — accumulating it through "
+            "merge_epochs holds the incremental == recompute identity only "
+            "up to float reduction order, not bitwise.",
+            RuntimeWarning, stacklevel=2)
+    merged, stats = make_survey_fn(survey, cfg, mesh=mesh)(gr)
+    stats["epoch"] = float(cfg.epoch)
+    stats["n_surveys"] = float(len(getattr(survey, "surveys", (survey,))))
+    stats = _exactness_guard(cfg, stats)
+    if prev_state is not None:
+        merged = survey.merge_epochs(prev_state, merged)
+    return merged, stats
+
+
+def finalize_epochs(survey: Survey, state):
+    """Render an epoch accumulator (from :func:`survey_delta`) on the host —
+    the delta engine's counterpart of the one-shot finalize."""
+    return survey.finalize(state)

@@ -10,7 +10,7 @@ pass yields byte-exact push-only vs push-pull volumes (paper Table 4).
 
 This is host numpy, ported line for line from the JAX package's planner so
 that configurations and reports compare field by field. Not ported yet:
-``plan_delta`` (delta epochs) and the mesh transport's round schedule.
+the mesh transport's round schedule.
 """
 from __future__ import annotations
 
@@ -26,12 +26,13 @@ from repro_torch.core.dodgr import (delta_gen_mask, hub_widths, meta_widths,
                                     orient_edges, sparsify_edges)
 from repro_torch.core.engine import EngineConfig
 from repro_torch.core.surveys import MetaSpec, Survey
-from repro_torch.graphs.csr import HostGraph
+from repro_torch.graphs.csr import DeltaGraph, HostGraph
 from repro_torch.utils import bucket_cap, bucket_caps, bucket_floor, ceil_div
 
 __all__ = [
-    "VolumeReport", "plan_engine", "plan_content_key", "survey_fingerprint",
-    "graph_token", "plan_shape_signature", "bucket_cap", "bucket_caps",
+    "VolumeReport", "plan_engine", "plan_delta", "plan_content_key",
+    "survey_fingerprint", "graph_token", "advance_token", "delta_token",
+    "plan_shape_signature", "bucket_cap", "bucket_caps",
 ]
 
 
@@ -218,6 +219,27 @@ def graph_token(g: HostGraph) -> str:
     for a in (g.src, g.dst, g.vmeta_i, g.vmeta_f, g.emeta_i, g.emeta_f):
         h.update(np.ascontiguousarray(a).tobytes())
     return h.hexdigest()
+
+
+def advance_token(token: str, src, dst, emeta_i=None, emeta_f=None,
+                  epoch: int | None = None) -> str:
+    """Chain-advance a graph token by one appended edge batch: the new token
+    commits to the whole epoch history without rehashing the union."""
+    h = hashlib.blake2b(digest_size=16)
+    h.update(token.encode())
+    h.update(repr(("epoch", epoch)).encode())
+    for a in (src, dst, emeta_i, emeta_f):
+        if a is not None:
+            h.update(np.ascontiguousarray(np.asarray(a)).tobytes())
+    return h.hexdigest()
+
+
+def delta_token(dg: DeltaGraph, base_token: str | None = None) -> str:
+    """Token of a :class:`DeltaGraph` snapshot: the base's token advanced by
+    the overlay. Pass ``base_token`` where the base's token is known."""
+    t = base_token if base_token is not None else graph_token(dg.base)
+    return advance_token(t, dg.d_src, dg.d_dst, dg.d_emeta_i, dg.d_emeta_f,
+                         epoch=dg.epoch)
 
 
 def plan_content_key(token: str, S: int, survey, *, mode: str = "pushpull",
@@ -433,7 +455,7 @@ def plan_engine(
     decision (results stay bitwise equal to ``"exact"``); ``promote_from``
     raises a bucketed plan's caps to a previous plan's before the
     dependent quantities are derived. ``edge_new`` plans a delta frontier
-    on the host; the engine does not run delta plans yet.
+    (prefer :func:`plan_delta`).
 
     ``use_pallas`` is stamped into the config for parity with the JAX
     package (whose default is ``False``); in the port the device alone
@@ -823,7 +845,21 @@ def plan_engine(
     return cfg, report
 
 
-def plan_delta(*args, **kwargs):
-    raise NotImplementedError(
-        "plan_delta (delta epochs) is not ported yet; see ROADMAP.md, "
-        "Queue 1 item 6")
+def plan_delta(
+    dg: DeltaGraph,
+    S: int,
+    survey: Survey | MetaSpec | None = None,
+    orient: str = "stable",
+    **kwargs,
+) -> tuple[EngineConfig, VolumeReport]:
+    """Plan one incremental epoch: only the delta frontier's generated
+    wedges (the three new-triangle classes), stamped with the epoch so
+    ``engine.survey_delta`` can check it against the matching
+    :func:`~repro_torch.core.dodgr.shard_delta`. Takes every
+    :func:`plan_engine` keyword; ``hub_theta="auto"`` weighs only the
+    epoch's masked wedge volumes. Pass the chosen ``cfg.hub_theta`` to
+    ``shard_delta``.
+    """
+    h, edge_new = dg.frontier()
+    return plan_engine(h, S, survey, orient=orient, edge_new=edge_new,
+                       epoch=dg.epoch, **kwargs)

@@ -63,6 +63,21 @@ def count_triangles_ref(g: HostGraph, orient: str = "degree") -> int:
     return survey_triangles_ref(g, None, orient)
 
 
+def new_triangle_classes_ref(g: HostGraph, edge_new: np.ndarray,
+                             orient: str = "stable") -> dict:
+    """Triangles by how many of their edges arrived this epoch:
+    ``{"noo": new-old-old, "nno": new-new-old, "nnn": new-new-new,
+    "old": no new edge}`` (the delta engine's oracle)."""
+    out = {"noo": 0, "nno": 0, "nnn": 0, "old": 0}
+
+    def cb(p, q, r, meta):
+        k = sum(bool(edge_new[i]) for i in meta["e_idx"])
+        out[("old", "noo", "nno", "nnn")[k]] += 1
+
+    survey_triangles_ref(g, cb, orient)
+    return out
+
+
 def wedge_count_ref(g: HostGraph, orient: str = "degree") -> int:
     """|W₊| — DODGr wedge checks, the engine's work unit (paper Sec. 3)."""
     adj, _, _ = dodgr_adjacency(g, orient)

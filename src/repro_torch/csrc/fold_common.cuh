@@ -15,6 +15,11 @@
 //   with 16-byte cp.async (4-byte where the rows are not 16-byte aligned or
 //   the chunk is the ragged last one), all issued before the first is used.
 //   Lane l then reads row l there (stride W: no bank conflict for odd W).
+//   Rows are staged only where the block's table fits beside the stages
+//   (single() and blocks(), W <= 14: wider rows would need more than a
+//   block's 227 KB for the 32 warps' stages alone, 16,384 * W bytes).
+//   Elsewhere (sliced(), direct()) lane l reads row l where it lies in
+//   device memory, and no stage is allocated.
 // - Few atomics on hot slots. Where the warp's kept lanes share one amount
 //   (every caller's case: the amounts are 1), __match_any_sync groups the
 //   lanes of a slot and the group's lowest lane adds amount * group size:
@@ -95,6 +100,17 @@ __device__ __forceinline__ void stage_rows(const unsigned* __restrict__ rows,
   }
 }
 
+// Bytes of the 32 warps' row stages, and whether they fit in one block's
+// shared memory by themselves (W <= 14): wider rows are never staged.
+__host__ __device__ inline size_t stage_bytes(int W) {
+  return (size_t)kWarps * kUnroll * 32 * W * 4;
+}
+
+template <bool kMax>
+__host__ __device__ inline bool staged(int W) {
+  return kMax && stage_bytes(W) <= kSmemBlock;
+}
+
 // Fold one element (slot s, amount a, row) into the tables; every lane of
 // the warp calls it. kShared: the tables are the block's in shared memory
 // (words are read before they are max-ed; where rows are folded, slots are
@@ -151,10 +167,12 @@ __host__ __device__ inline int bitmap_words(int cap) {
   return kMax ? (cap + 31) / 32 : 0;
 }
 
+// (rows staged on single() and blocks() only, as launch_path stages them)
 template <bool kCount, bool kMax>
 __host__ __device__ inline size_t fold_smem(int path, int W, int cap) {
-  const size_t stages = kMax ? (size_t)kWarps * kUnroll * 32 * W * 4 : 0;
-  if (path == kDirect) return stages;
+  if (path == kDirect) return 0;
+  const size_t stages =
+      path != kSliced && staged<kMax>(W) ? stage_bytes(W) : 0;
   return stages + ((size_t)table_words<kCount, kMax>(W, cap) +
                    bitmap_words<kMax>(cap)) * 4;
 }
@@ -164,8 +182,10 @@ __host__ __device__ inline size_t fold_smem(int path, int W, int cap) {
 // tables, then flushes the slots it touched with device atomics. kSliced:
 // kBlocks for a table cut into slices of `slice` slots; block b folds the
 // slots of slice b % n_slices among the chunks of replica b / n_slices.
-// kDirect: device atomics on the caller's zeroed table.
-template <int kPath, bool kCount, bool kMax>
+// kDirect: device atomics on the caller's zeroed table. kStage: rows are
+// staged in shared memory (launch_path says where); otherwise each lane
+// reads its row in device memory.
+template <int kPath, bool kCount, bool kMax, bool kStage>
 __global__ void __launch_bounds__(kThreads)
     fold_kernel(const int* __restrict__ slots,
                 const int* __restrict__ amounts,
@@ -173,7 +193,7 @@ __global__ void __launch_bounds__(kThreads)
                 int cap, int slice, int* __restrict__ table) {
   extern __shared__ __align__(16) unsigned smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int Ws = kMax ? W : 0;  // words staged a row
+  const int Ws = kMax && kStage ? W : 0;  // words staged a row
   // the warp's kUnroll stages (kMax), then (shared paths) the count table,
   // the packed table and the touched bitmap of the block's slice
   unsigned* stage = smem + warp * kUnroll * 32 * Ws;
@@ -201,7 +221,7 @@ __global__ void __launch_bounds__(kThreads)
       tab[i] = 0u;
     __syncthreads();
   }
-  const bool vec = kMax && ((uintptr_t)rows & 15) == 0;
+  const bool vec = kMax && kStage && ((uintptr_t)rows & 15) == 0;
   const long long chunks = (B + 31) >> 5;
   const long long stride = (long long)(gridDim.x / n_slices) * kWarps;
   for (long long c0 = (long long)(blockIdx.x / n_slices) * kWarps + warp;
@@ -219,19 +239,23 @@ __global__ void __launch_bounds__(kThreads)
         if (kPath == kSliced) s[u] = (int)((unsigned)s[u] - (unsigned)lo);
         if (kCount) a[u] = amounts[b0 + lane];
       }
-      if (kMax && m > 0)
+      if (kMax && kStage && m > 0)
         stage_rows(rows, b0, m, W, vec, stage + u * 32 * W, lane);
     }
-    if (kMax) {
+    if (kMax && kStage) {
       cp_async_wait_all();
       __syncwarp();
     }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-      fold_lane<kShared, kCount, kMax>(s[u], a[u],
-                                       stage + u * 32 * Ws + lane * Ws, W,
-                                       n, t_count, t_packed, touched, lane);
-    if (kMax) __syncwarp();  // the stages are refilled by the next round
+    for (int u = 0; u < kUnroll; ++u) {
+      // a lane past the batch holds slot -1 and reads no row
+      const unsigned* row =
+          kStage ? stage + u * 32 * Ws + lane * Ws
+                 : rows + (((c0 + u * stride) << 5) + lane) * W;
+      fold_lane<kShared, kCount, kMax>(s[u], a[u], row, W, n, t_count,
+                                       t_packed, touched, lane);
+    }
+    if (kMax && kStage) __syncwarp();  // the stages are refilled next round
   }
   if (kPath == kSingle) {  // the block's tables are the result (slice = cap)
     __syncthreads();
@@ -263,30 +287,61 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <int kPath, bool kCount, bool kMax, bool kStage>
+cudaError_t launch_kernel(const void* slots, const void* amounts,
+                          const void* rows, long long B, int W, int cap,
+                          int slice, void* table, long long blocks,
+                          size_t smem, cudaStream_t st) {
+  static size_t allowed = 48 * 1024;  // the most this kernel may take
+  if (smem > allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fold_kernel<kPath, kCount, kMax, kStage>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    allowed = smem;
+  }
+  fold_kernel<kPath, kCount, kMax, kStage>
+      <<<(unsigned)blocks, kThreads, smem, st>>>(
+          (const int*)slots, (const int*)amounts, (const unsigned*)rows, B,
+          W, cap, slice, (int*)table);
+  return cudaGetLastError();
+}
+
+// The kernel of the path. Rows are staged on single() and blocks() where
+// they fit (staged(W)); sliced() and direct() read them where they lie (a
+// fold without rows takes the staging kernel, which then stages nothing).
+// smem is fold_smem's count for the same path and W, which no path lets
+// exceed kSmemBlock.
 template <int kPath, bool kCount, bool kMax>
 cudaError_t launch_path(const void* slots, const void* amounts,
                         const void* rows, long long B, int W, int cap,
                         int slice, void* table, long long blocks, size_t smem,
                         cudaStream_t st) {
-  static size_t allowed = 48 * 1024;  // the most this kernel may take
-  if (smem > allowed) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fold_kernel<kPath, kCount, kMax>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    allowed = smem;
+  if (smem > kSmemBlock) return cudaErrorInvalidValue;
+  constexpr bool kTable = kPath == kSingle || kPath == kBlocks;
+  if constexpr (kMax) {
+    if (!kTable || !staged<kMax>(W))
+      return launch_kernel<kPath, kCount, kMax, false>(
+          slots, amounts, rows, B, W, cap, slice, table, blocks, smem, st);
   }
-  fold_kernel<kPath, kCount, kMax><<<(unsigned)blocks, kThreads, smem, st>>>(
-      (const int*)slots, (const int*)amounts, (const unsigned*)rows, B, W,
-      cap, slice, (int*)table);
-  return cudaGetLastError();
+  if constexpr (!kMax || kTable)
+    return launch_kernel<kPath, kCount, kMax, true>(
+        slots, amounts, rows, B, W, cap, slice, table, blocks, smem, st);
+  return cudaErrorInvalidValue;  // not reached
 }
 
-// Whether a table of cap slots (and, where rows are folded, the warps'
+// Whether a table of cap slots (and, where rows are staged, the warps'
 // row stages) fits in one block's shared memory: single() and blocks().
 template <bool kCount, bool kMax>
 inline bool fits(int W, int cap) {
   return fold_smem<kCount, kMax>(kBlocks, W, cap) <= kSmemBlock;
+}
+
+// Whether sliced() can cut a table of rows of W words: a slice of 32 slots
+// fits in one block's shared memory.
+template <bool kCount, bool kMax>
+inline bool sliceable(int W) {
+  return fold_smem<kCount, kMax>(kSliced, W, 32) <= kSmemBlock;
 }
 
 // One block folds the B elements into shared tables and writes them whole
@@ -330,18 +385,16 @@ cudaError_t direct(const void* slots, const void* amounts, const void* rows,
   cudaError_t err = zero<kCount, kMax>(table, B, W, cap, st, &sms, &work);
   if (!work) return err;
   const size_t smem = fold_smem<kCount, kMax>(kDirect, W, cap);
-  if (smem > kSmemBlock) return cudaErrorInvalidValue;
   const long long grid = (B + kDirectElemsPerBlock - 1) / kDirectElemsPerBlock;
   return launch_path<kDirect, kCount, kMax>(
       slots, amounts, rows, B, W, cap, cap, table,
       grid < 2LL * sms ? grid : 2LL * sms, smem, st);
 }
 
-// Blocks a slice of `slice` slots can have resident an SM: an SM has 228
-// KB of shared memory (1 KB of it kept for each block) and 2,048 threads.
-template <bool kCount, bool kMax>
-long long blocks_per_sm(int W, int slice) {
-  const size_t smem = fold_smem<kCount, kMax>(kBlocks, W, slice);
+// Blocks of smem bytes of shared memory an SM can have resident: an SM
+// has 228 KB of shared memory (1 KB of it kept for each block) and 2,048
+// threads.
+inline long long blocks_per_sm(size_t smem) {
   long long per_sm = (long long)(228 * 1024 / (smem + 1024));
   per_sm = per_sm < 2048 / kThreads ? per_sm : 2048 / kThreads;
   return per_sm > 1 ? per_sm : 1;
@@ -359,17 +412,17 @@ cudaError_t blocks(const void* slots, const void* amounts, const void* rows,
   cudaError_t err = zero<kCount, kMax>(table, B, W, cap, st, &sms, &work);
   if (!work) return err;
   const long long wanted = (B + per_block - 1) / per_block;
-  const long long room = sms * blocks_per_sm<kCount, kMax>(W, cap);
+  const size_t smem = fold_smem<kCount, kMax>(kBlocks, W, cap);
+  const long long room = sms * blocks_per_sm(smem);
   return launch_path<kBlocks, kCount, kMax>(
       slots, amounts, rows, B, W, cap, cap, table,
-      wanted < room ? wanted : room, fold_smem<kCount, kMax>(kBlocks, W, cap),
-      st);
+      wanted < room ? wanted : room, smem, st);
 }
 
 // blocks() for a table too large for one block's shared memory: the table
 // is cut into equal slices of a multiple of 32 slots, each as large as a
-// block's shared memory holds beside the row stages; each replica of the
-// grid has a block a slice.
+// block's shared memory holds (rows are not staged); each replica of the
+// grid has a block a slice. Needs sliceable(W).
 template <bool kCount, bool kMax>
 cudaError_t sliced(const void* slots, const void* amounts, const void* rows,
                    long long B, int W, int cap, void* table,
@@ -378,10 +431,8 @@ cudaError_t sliced(const void* slots, const void* amounts, const void* rows,
   bool work = false;
   cudaError_t err = zero<kCount, kMax>(table, B, W, cap, st, &sms, &work);
   if (!work) return err;
-  const size_t stages = fold_smem<kCount, kMax>(kDirect, W, cap);
   const long long per_slot = 32 * table_words<kCount, kMax>(W, 1) + kMax;
-  const size_t room_bytes = kSmemBlock > stages ? kSmemBlock - stages : 0;
-  long long most = (long long)room_bytes / 4 * 32 / per_slot;
+  long long most = (long long)(kSmemBlock / 4) * 32 / per_slot;
   most -= most % 32;
   if (most < 32) return cudaErrorInvalidValue;
   long long n_slices = (cap + most - 1) / most;
@@ -389,12 +440,13 @@ cudaError_t sliced(const void* slots, const void* amounts, const void* rows,
   slice += (32 - slice % 32) % 32;
   n_slices = (cap + slice - 1) / slice;  // as the kernel counts them
   const long long wanted = (B + per_block - 1) / per_block;
-  long long room = sms * blocks_per_sm<kCount, kMax>(W, (int)slice) / n_slices;
+  const size_t smem = fold_smem<kCount, kMax>(kSliced, W, (int)slice);
+  long long room = sms * blocks_per_sm(smem) / n_slices;
   room = room > 0 ? room : 1;
   const long long replicas = wanted < room ? wanted : room;
   return launch_path<kSliced, kCount, kMax>(
       slots, amounts, rows, B, W, cap, (int)slice, table, n_slices * replicas,
-      fold_smem<kCount, kMax>(kBlocks, W, (int)slice), st);
+      smem, st);
 }
 
 }  // namespace

@@ -49,14 +49,23 @@ constexpr long long kFoldPerBlock = 16384;
 }  // namespace
 
 // table: the caller's [cap * (W + 1)] int32 buffer: count [cap], then
-// packed [cap, W]. Tables too large for shared memory take device atomics.
+// packed [cap, W]. A table too large for shared memory (beside the row
+// stages, which only rows of W <= 14 words get) is cut into slices that
+// fit, rows read where they lie; device atomics only where a slice of 32
+// slots does not fit (W > 1,814). Device atomics on the hot slots of a
+// wide row serialise: 5.47 ms against 0.16 ms on slices at W = 16 on
+// DegreeTriples' largest fold's slots (PERF.md).
 extern "C" int tripoll_fold_count_max(const void* slots, const void* amounts,
                                       const void* rows, long long B, int W,
                                       int cap, void* table, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  if (!fold::fits<true, true>(W, cap))
-    return (int)fold::direct<true, true>(slots, amounts, rows, B, W, cap,
-                                         table, st);
+  if (!fold::fits<true, true>(W, cap)) {
+    if (!fold::sliceable<true, true>(W))
+      return (int)fold::direct<true, true>(slots, amounts, rows, B, W, cap,
+                                           table, st);
+    return (int)fold::sliced<true, true>(slots, amounts, rows, B, W, cap,
+                                         table, kFoldPerBlock, st);
+  }
   if (B <= kFoldSingleMaxB)
     return (int)fold::single<true, true>(slots, amounts, rows, B, W, cap,
                                          table, st);

@@ -182,7 +182,8 @@ extern "C" int tripoll_hist_max(const void* slots, const void* rows,
                                 long long B, int W, int cap, void* packed,
                                 void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  if (B <= kMaxSingleMaxB && fold::fits<false, true>(W, cap))
+  if (B <= kMaxSingleMaxB && fold::staged<true>(W) &&
+      fold::fits<false, true>(W, cap))
     return (int)fold::single<false, true>(slots, nullptr, rows, B, W, cap,
                                           packed, st);
   const size_t bytes = (size_t)cap * W * 4;

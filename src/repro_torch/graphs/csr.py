@@ -1,12 +1,15 @@
 """Host-side graph container and metadata schema.
 
 ``HostGraph`` is the ingestion format: an undirected simple graph as a
-deduplicated edge list with struct-of-arrays metadata. It is host numpy;
-the device build starts in :func:`repro_torch.core.dodgr.shard_dodgr`.
+deduplicated edge list with struct-of-arrays metadata; ``DeltaGraph`` is
+an epoch sequence of them (an immutable base and the batch that arrived
+this epoch). Both are host numpy; the device build starts in
+:mod:`repro_torch.core.dodgr`.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from functools import cached_property
 
 import numpy as np
 
@@ -144,8 +147,147 @@ class HostGraph:
         g.add_edges_from(zip(self.src.tolist(), self.dst.tolist()))
         return g
 
-    def append_edges(self, *args, **kwargs):
-        raise NotImplementedError(
-            "delta epochs (DeltaGraph, shard_delta, plan_delta, "
-            "survey_delta) are not ported yet; see ROADMAP.md, Queue 1 "
-            "item 6")
+    def append_edges(self, src, dst, emeta_i=None, emeta_f=None, n=None,
+                     vmeta_i=None, vmeta_f=None) -> "DeltaGraph":
+        """Start an epoch sequence: this graph becomes the immutable base and
+        the batch becomes the epoch-1 delta overlay.
+
+        The batch is canonicalized like :meth:`from_edges` (loops dropped,
+        ``src < dst``, batch-internal duplicates keep the first occurrence)
+        and edges the base already holds are dropped: re-arrivals are not
+        new, so the union stays simple and no triangle is counted twice.
+        ``n`` (or a batch endpoint past ``self.n``) grows the vertex set;
+        ``vmeta_i``/``vmeta_f`` replace the vertex metadata at the grown
+        size (default: zero rows for the new vertices).
+        """
+        base = self
+        src = np.asarray(src, np.int64)
+        dst = np.asarray(dst, np.int64)
+        n_new = int(max(self.n, n or 0,
+                        (src.max() + 1) if len(src) else 0,
+                        (dst.max() + 1) if len(dst) else 0))
+        if n_new > self.n or vmeta_i is not None or vmeta_f is not None:
+            if vmeta_i is None:
+                vmeta_i = np.concatenate(
+                    [self.vmeta_i,
+                     np.zeros((n_new - self.n, self.spec.dvi), np.int32)])
+            if vmeta_f is None:
+                vmeta_f = np.concatenate(
+                    [self.vmeta_f,
+                     np.zeros((n_new - self.n, self.spec.dvf), np.float32)])
+            base = HostGraph(n_new, self.src, self.dst, self.spec,
+                             np.asarray(vmeta_i, np.int32),
+                             np.asarray(vmeta_f, np.float32),
+                             self.emeta_i, self.emeta_f,
+                             sample_p=self.sample_p,
+                             sample_seed=self.sample_seed)
+        batch = HostGraph.from_edges(n_new, src, dst, spec=self.spec,
+                                     emeta_i=emeta_i, emeta_f=emeta_f)
+        # drop batch edges the base already holds (n-independent 64-bit key)
+        bkey = (batch.src << np.int64(32)) | batch.dst
+        gkey = (base.src << np.int64(32)) | base.dst
+        fresh = ~np.isin(bkey, gkey)
+        return DeltaGraph(
+            base=base,
+            d_src=batch.src[fresh], d_dst=batch.dst[fresh],
+            d_emeta_i=batch.emeta_i[fresh], d_emeta_f=batch.emeta_f[fresh],
+            epoch=1,
+        )
+
+
+@dataclass(frozen=True)
+class DeltaGraph:
+    """Epoch-aware graph: an immutable base (every edge of epochs before
+    ``epoch``) plus a compact overlay (the edges that arrived this epoch).
+
+    ``union()`` is the full snapshot a one-shot recompute would poll;
+    ``frontier()`` is the subgraph the incremental engine traverses
+    instead: every triangle with a new edge has all three edges incident
+    to an endpoint of the overlay, so the overlay plus the base edges that
+    touch one of its endpoints hold exactly the new triangles (and some old
+    ones, which the engine masks out).
+    """
+
+    base: HostGraph
+    d_src: np.ndarray    # [b] int64 canonical (src < dst), disjoint from base
+    d_dst: np.ndarray
+    d_emeta_i: np.ndarray  # [b, dei] int32
+    d_emeta_f: np.ndarray  # [b, def] float32
+    epoch: int = 1
+
+    @property
+    def n(self) -> int:
+        return self.base.n
+
+    @property
+    def spec(self) -> MetaSpec:
+        return self.base.spec
+
+    @property
+    def m(self) -> int:
+        """Union (cumulative) undirected edge count."""
+        return self.base.m + len(self.d_src)
+
+    @property
+    def m_delta(self) -> int:
+        """Edges that arrived this epoch."""
+        return len(self.d_src)
+
+    @cached_property
+    def _union(self) -> HostGraph:
+        # the base's DOULION stamp survives the append
+        return HostGraph(
+            self.n,
+            np.concatenate([self.base.src, self.d_src]),
+            np.concatenate([self.base.dst, self.d_dst]),
+            self.spec, self.base.vmeta_i, self.base.vmeta_f,
+            np.concatenate([self.base.emeta_i, self.d_emeta_i]),
+            np.concatenate([self.base.emeta_f, self.d_emeta_f]),
+            sample_p=self.base.sample_p, sample_seed=self.base.sample_seed,
+        )
+
+    def union(self) -> HostGraph:
+        """The full snapshot as of this epoch (base ∪ overlay), cached."""
+        return self._union
+
+    def touched(self) -> np.ndarray:
+        """[n] bool: vertices incident to a delta edge (V(D))."""
+        t = np.zeros(self.n, bool)
+        t[self.d_src] = True
+        t[self.d_dst] = True
+        return t
+
+    @cached_property
+    def _frontier(self) -> tuple[HostGraph, np.ndarray]:
+        t = self.touched()
+        keep = t[self.base.src] | t[self.base.dst]
+        h = HostGraph(
+            self.n,
+            np.concatenate([self.base.src[keep], self.d_src]),
+            np.concatenate([self.base.dst[keep], self.d_dst]),
+            self.spec, self.base.vmeta_i, self.base.vmeta_f,
+            np.concatenate([self.base.emeta_i[keep], self.d_emeta_i]),
+            np.concatenate([self.base.emeta_f[keep], self.d_emeta_f]),
+            sample_p=self.base.sample_p, sample_seed=self.base.sample_seed,
+        )
+        edge_new = np.zeros(h.m, bool)
+        edge_new[int(keep.sum()):] = True
+        return h, edge_new
+
+    def frontier(self) -> tuple[HostGraph, np.ndarray]:
+        """(H, edge_new): the overlay plus the base edges incident to its
+        endpoints, and each edge's newness. Every triangle of the union
+        with a new edge lies in H, under the same orientation, once.
+        Cached, so ``shard_delta`` and ``plan_delta`` share one build."""
+        return self._frontier
+
+    def append_edges(self, src, dst, emeta_i=None, emeta_f=None, n=None,
+                     vmeta_i=None, vmeta_f=None) -> "DeltaGraph":
+        """Advance one epoch: the overlay folds into the base and the new
+        batch becomes the next overlay."""
+        nxt = self.union().append_edges(src, dst, emeta_i=emeta_i,
+                                        emeta_f=emeta_f, n=n,
+                                        vmeta_i=vmeta_i, vmeta_f=vmeta_f)
+        return DeltaGraph(base=nxt.base, d_src=nxt.d_src, d_dst=nxt.d_dst,
+                          d_emeta_i=nxt.d_emeta_i, d_emeta_f=nxt.d_emeta_f,
+                          epoch=self.epoch + 1)

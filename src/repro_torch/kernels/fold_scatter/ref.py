@@ -115,12 +115,50 @@ def fold_warp_numpy(slots, amounts, rows, capacity: int, *, path: str,
     return count, packed if do_max else None, stats
 
 
+# the fold body's launch constants (csrc/fold_common.cuh) and
+# fold_count_max's one-block limit (csrc/fold_scatter.cu)
+FOLD_WARPS, FOLD_UNROLL, SMEM_BLOCK = 32, 4, 227 * 1024
+FOLD_SINGLE_MAX_B = 16384
+
+
+def fold_count_max_route(B: int, W: int, capacity: int) -> dict:
+    """The route ``tripoll_fold_count_max`` takes for a batch of B rows of
+    W words into ``capacity`` slots, and the shared memory it asks for a
+    block: a count table, a [capacity, W] table and a touched bitmap that
+    fit in a block beside the rows' stages (32 warps × 4 chunks × 32 rows ×
+    W words, only where they alone fit: W ≤ 14) take one block (B ≤ 16,384)
+    or blocks. A table too large for that is cut into ``slices`` equal
+    slices of a multiple of 32 slots, each as large as a block holds, rows
+    read where they lie (path ``blocks``); device atomics (``direct``, no
+    shared memory) only where a slice of 32 slots does not fit."""
+    stage = FOLD_WARPS * FOLD_UNROLL * 32 * W * 4
+    staged = stage <= SMEM_BLOCK
+    stages = stage if staged else 0
+
+    def tables(cap):
+        return (cap * (1 + W) + (cap + 31) // 32) * 4
+
+    if stages + tables(capacity) <= SMEM_BLOCK:
+        return dict(path="single" if B <= FOLD_SINGLE_MAX_B else "blocks",
+                    staged=staged, smem=stages + tables(capacity), slices=1)
+    if tables(32) > SMEM_BLOCK:
+        return dict(path="direct", staged=False, smem=0, slices=1)
+    most = SMEM_BLOCK // 4 * 32 // (32 * (1 + W) + 1)
+    most -= most % 32
+    n = -(-capacity // most)
+    size = -(-capacity // n)
+    size += -size % 32
+    return dict(path="blocks", staged=False, smem=tables(size),
+                slices=-(-capacity // size))
+
+
 def fold_count_max_warp_numpy(slots, amounts, rows, capacity: int, *,
-                              path: str, blocks: int = 1, warps: int = 32):
+                              path: str, blocks: int = 1, warps: int = 32,
+                              slices: int = 1):
     """fold_count_max's fold (:func:`fold_warp_numpy` with both tables):
     ``(count [capacity] int32, packed [capacity, W] uint32, stats)``."""
     return fold_warp_numpy(slots, amounts, rows, capacity, path=path,
-                           blocks=blocks, warps=warps)
+                           blocks=blocks, warps=warps, slices=slices)
 
 
 def skewed_fold_inputs(rng, case: str, B: int, W: int, capacity: int):

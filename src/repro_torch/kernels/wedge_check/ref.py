@@ -103,3 +103,45 @@ def lifting_lower_bound_numpy(keys_d, keys_h, keys_i, lo, hi, qd, qh, qi):
                 walked += 1
         out[b] = p
     return out, walked
+
+
+# the longest stable-key hub row of the scale-18 cell (d₊max under the
+# (0, hash, id) key)
+HUB_ROW_MAX = 25374
+
+
+def hub_wedge_check_inputs(rng, n_rows: int, B: int, max_len: int = HUB_ROW_MAX):
+    """The hub lane's search: one key row [1, n_rows · Lh], the hub table
+    flattened, each of its rows a stable-key Adj₊ row (d = 0 everywhere,
+    distinct ids sorted by (hash unsigned, id), padded to Lh with the
+    shard layer's sentinels). Row lengths run from 1 to ``max_len`` (both
+    among them). Query b searches row ``hid`` in [hid · Lh, hid · Lh +
+    len): a key of the row, a random (0, h, id), or a key below (0, 0,
+    -1) or above (0, 2³² - 1, 2³¹ - 1) every key. Returns numpy arrays
+    ``(keys_d, keys_h (uint32), keys_i)`` [1, n_rows · Lh] and ``(lo, hi,
+    qd, qh (uint32), qi)`` [1, B]."""
+    lens = rng.integers(1, max_len + 1, n_rows)
+    lens[0], lens[-1] = 1, max_len
+    Lh = int(lens.max())
+    kd = np.full((n_rows, Lh), 2**30, np.int32)
+    kh = np.zeros((n_rows, Lh), np.uint32)
+    ki = np.full((n_rows, Lh), 2**31 - 1, np.int32)
+    for r, n in enumerate(lens):
+        i = rng.choice(2**31 - 2, n, replace=False).astype(np.int32)
+        h = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+        o = np.lexsort((i, h))
+        kd[r, :n], kh[r, :n], ki[r, :n] = 0, h[o], i[o]
+    hid = rng.integers(0, n_rows, B)
+    lo = (hid * Lh).astype(np.int32)
+    hi = (lo + lens[hid]).astype(np.int32)
+    pick = hid * Lh + (rng.random(B) * lens[hid]).astype(np.int64)
+    qd = np.zeros(B, np.int32)
+    qh, qi = kh.reshape(-1)[pick].copy(), ki.reshape(-1)[pick].copy()
+    kind = rng.integers(0, 4, B)
+    rnd = kind == 1
+    qh[rnd] = rng.integers(0, 2**32, int(rnd.sum()), dtype=np.uint64).astype(np.uint32)
+    qi[rnd] = rng.integers(0, 2**31 - 1, int(rnd.sum()))
+    qh[kind == 2], qi[kind == 2] = 0, -1
+    qh[kind == 3], qi[kind == 3] = 0xFFFFFFFF, 2**31 - 1
+    return (kd.reshape(1, -1), kh.reshape(1, -1), ki.reshape(1, -1),
+            lo[None], hi[None], qd[None], qh[None], qi[None])

@@ -1,7 +1,7 @@
 """The port's entry points vs the JAX package's: the reference run with
 its Pallas kernels in interpret mode, the reference's own shards and plan
 carried in through interop, DOULION sampling, the overflow guard, and the
-paths not ported yet. Exact equality throughout."""
+paths not ported yet (the mesh lowering). Exact equality throughout."""
 import dataclasses
 
 import numpy as np
@@ -105,21 +105,27 @@ def test_overflow_flags_inexact_like_reference():
 
 
 def test_unported_paths_raise_and_name_the_roadmap():
+    """The mesh lowering still raises; the hub lane and delta epochs,
+    which raised here until they were ported, now run."""
     g = pt_gen.rmat(7, 8, seed=1).with_degree_meta()
     tc = pt_sv.TriangleCount()
     gr_hub, _ = pt_dodgr.shard_dodgr(g, 2, hub_theta=10, device="cpu")
     cfg_hub, _ = pt_pp.plan_engine(g, 2, tc, hub_theta=10)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pt_engine.survey_push_pull(gr_hub, tc, cfg_hub)
+    res, st = pt_engine.survey_push_pull(gr_hub, tc, cfg_hub)
+    assert res == ref_count(ref_gen.rmat(7, 8, seed=1)) and st["tris_hub"] > 0
     gr, _ = pt_dodgr.shard_dodgr(g, 2, device="cpu")
     cfg, _ = pt_pp.plan_engine(g, 2, tc)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         pt_engine.survey_push_pull(gr, tc, cfg, mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         pt_pp.plan_engine(g, 2, tc, transport="mesh")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pt_pp.plan_delta(g, 2, tc)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        g.append_edges([0], [1])
+    dg = g.append_edges([0], [1])
+    cfg_d, _ = pt_pp.plan_delta(dg, 2, tc)
+    gr_d, _ = pt_dodgr.shard_delta(dg, 2, device="cpu")
+    state, _ = pt_engine.survey_delta(gr_d, tc, cfg_d)
+    assert pt_engine.finalize_epochs(tc, state) == (
+        ref_count(ref_gen.rmat(7, 8, seed=1).append_edges([0], [1]).union(),
+                  orient="stable")
+        - ref_count(ref_gen.rmat(7, 8, seed=1), orient="stable"))
     with pytest.raises(ValueError, match="sampling mismatch"):
         pt_engine.survey_push_only(gr, tc, dataclasses.replace(cfg, sample_p=0.5))

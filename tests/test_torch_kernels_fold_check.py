@@ -5,6 +5,7 @@ batches and CSR-shaped push queries. The CUDA kernels themselves are held
 against the plain versions on the card by chip_smoke.py. Exact equality
 throughout."""
 import ctypes
+import re
 
 import numpy as np
 import pytest
@@ -15,12 +16,14 @@ from repro.kernels.fold_scatter import ops as ref_fs
 from repro.kernels.wedge_check import ops as ref_wc
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.fold_scatter import ops as fs
+from repro_torch.kernels.fold_scatter import ref as fs_ref
 from repro_torch.kernels.fold_scatter.ref import (
-    fold_count_max_numpy, fold_count_max_warp_numpy, skewed_fold_inputs)
+    fold_count_max_numpy, fold_count_max_route, fold_count_max_warp_numpy,
+    skewed_fold_inputs)
 from repro_torch.kernels.wedge_check import ops as wc
 from repro_torch.kernels.wedge_check.ref import (
-    ROW_LENGTHS, csr_wedge_check_inputs, lifting_lower_bound_numpy,
-    lower_bound_numpy)
+    ROW_LENGTHS, csr_wedge_check_inputs, hub_wedge_check_inputs,
+    lifting_lower_bound_numpy, lower_bound_numpy)
 from test_torch_kernels import bits
 
 # one intra-op thread: the suite runs in parallel workers, and torch's
@@ -104,6 +107,92 @@ def test_fold_count_max_warp_model_wraps_int32_sums():
     np.testing.assert_array_equal(plain_p.numpy().view(np.uint32), p)
 
 
+def test_fold_count_max_route_fits_shared_memory_at_every_width():
+    """The modelled route choice asks no block for more than 232,448 bytes
+    for W in 1…128: rows are staged (W ≤ 14) only where the table fits
+    beside the stages, which is then the route and byte count of the
+    kernel before rows were ever read unstaged; every table too large for
+    shared memory beside them is cut into slices (one where it fits
+    without the stages), whatever W; device atomics only
+    where a slice of 32 slots does not fit (W > 1,814). The model's
+    constants are the sources'."""
+    csrc = _cuda.CSRC
+    body = (csrc / "fold_common.cuh").read_text()
+    consts = {m[1]: int(m[2]) for m in re.finditer(
+        r"constexpr int (kThreads|kUnroll) = (\d+);", body)}
+    assert consts == {"kThreads": 32 * fs_ref.FOLD_WARPS,
+                      "kUnroll": fs_ref.FOLD_UNROLL}
+    assert "kSmemBlock = 227 * 1024;" in body
+    assert fs_ref.SMEM_BLOCK == 232_448
+    assert (f"kFoldSingleMaxB = {fs_ref.FOLD_SINGLE_MAX_B};"
+            in (csrc / "fold_scatter.cu").read_text())
+    for W in range(1, 129):
+        stage = 16_384 * W
+        for cap in (16, 4096, 262_144):
+            tables = (cap * (1 + W) + (cap + 31) // 32) * 4
+            fits = (stage if W <= 14 else 0) + tables <= 232_448
+            for B in (1, 16_384, 16_385):
+                r = fold_count_max_route(B, W, cap)
+                assert r["smem"] <= 232_448, (W, cap, B)
+                assert r["staged"] == (W <= 14 and fits)
+                if fits:
+                    assert r["path"] == ("single" if B <= 16_384 else "blocks")
+                    assert r["slices"] == 1
+                    assert r["smem"] == (stage if W <= 14 else 0) + tables
+                else:
+                    assert r["path"] == "blocks", (W, cap)
+                    # one slice where the table fits without the stages
+                    assert (r["slices"] > 1) == (tables > 232_448)
+    assert fold_count_max_route(1, 15, 16)["path"] == "single"
+    assert fold_count_max_route(16_385, 16, 4096) == dict(
+        path="blocks", staged=False, smem=(2048 * 17 + 64) * 4, slices=2)
+    assert fold_count_max_route(1, 1814, 4096)["path"] == "blocks"
+    assert fold_count_max_route(1, 1815, 4096) == dict(
+        path="direct", staged=False, smem=0, slices=1)
+
+
+@pytest.mark.parametrize("W,cap,B", [(5, 65_536, 20_000), (14, 16_384, 3000)])
+def test_fold_count_max_sliced_narrow_rows_model_equals_plain(W, cap, B):
+    """A table of rows of W ≤ 14 words too large for shared memory takes
+    table slices with rows read where they lie, as wide rows do; the
+    modelled fold on that route equals the plain version."""
+    rng = np.random.default_rng(W * B + cap)
+    slots, amounts, rows = skewed_fold_inputs(rng, "zipf", B, W, cap)
+    slots[::7] = rng.integers(0, cap, len(slots[::7]))   # every slice too
+    route = fold_count_max_route(B, W, cap)
+    assert route["path"] == "blocks" and route["slices"] > 1
+    assert not route["staged"]
+    count, packed = fs.fold_count_max(torch.as_tensor(slots),
+                                      torch.as_tensor(amounts), bits(rows), cap)
+    m_c, m_p, st = fold_count_max_warp_numpy(
+        slots, amounts, rows, cap, path="blocks", blocks=1,
+        slices=route["slices"])
+    np.testing.assert_array_equal(m_c, count.numpy())
+    np.testing.assert_array_equal(m_p, packed.numpy().view(np.uint32))
+    assert st["lanes"] == int(((slots >= 0) & (slots < cap)).sum())
+
+
+@pytest.mark.parametrize("W", [15, 16])
+@pytest.mark.parametrize("cap,B", [(64, 700), (64, 20_000), (4096, 3000),
+                                   (16_384, 20_000)])
+def test_fold_count_max_wide_rows_model_equals_plain(W, cap, B):
+    """At W = 15 and 16 the modelled fold on the route the launcher takes
+    (one block, blocks, or blocks on table slices) equals the plain
+    version."""
+    rng = np.random.default_rng(W * B + cap)
+    slots, amounts, rows = skewed_fold_inputs(rng, "zipf", B, W, cap)
+    route = fold_count_max_route(B, W, cap)
+    assert not route["staged"]
+    count, packed = fs.fold_count_max(torch.as_tensor(slots),
+                                      torch.as_tensor(amounts), bits(rows), cap)
+    m_c, m_p, st = fold_count_max_warp_numpy(
+        slots, amounts, rows, cap, path=route["path"],
+        blocks=3 if route["path"] == "blocks" else 1, slices=route["slices"])
+    np.testing.assert_array_equal(m_c, count.numpy())
+    np.testing.assert_array_equal(m_p, packed.numpy().view(np.uint32))
+    assert st["lanes"] == int(((slots >= 0) & (slots < cap)).sum())
+
+
 # ---------------------------------------------------------------------------
 # wedge_check: binary lifting on (d, h), then the walk over id ties
 
@@ -132,6 +221,28 @@ def test_wedge_check_lifting_model_equals_plain_and_pallas():
         assert (pos[one[5] == -1] == qlo[one[5] == -1]).all()   # below all
         assert (pos[one[5] == 7] == qhi[one[5] == 7]).all()     # above all
     assert walked > 0                # (d, h) ties broken by id are walked
+
+
+def test_wedge_check_hub_shaped_search_equals_oracle():
+    """The hub lane's search (one flattened row of stable-key hub rows, up
+    to 3,000 keys here): the plain version, the kernel's lifting model and
+    the bisect oracle agree, and queries below and above every key land
+    on their row's ends."""
+    rng = np.random.default_rng(17)
+    args = hub_wedge_check_inputs(rng, 5, 600, max_len=3000)
+    kd, kh, ki, lo, hi, qd, qh, qi = args
+    assert all((kd[0][a:b] == 0).all() for a, b in zip(lo[0], hi[0]))
+    plain = wc.wedge_check(torch.as_tensor(kd), bits(kh), torch.as_tensor(ki),
+                           torch.as_tensor(lo), torch.as_tensor(hi),
+                           torch.as_tensor(qd), bits(qh),
+                           torch.as_tensor(qi)).numpy()[0]
+    one = tuple(x[0] for x in args)
+    pos, _ = lifting_lower_bound_numpy(*one)
+    np.testing.assert_array_equal(pos, plain)
+    np.testing.assert_array_equal(pos, lower_bound_numpy(*one))
+    below, above = qi[0] == -1, qi[0] == 2**31 - 1
+    assert (plain[below] == lo[0][below]).all() and below.any()
+    assert (plain[above] == hi[0][above]).all() and above.any()
 
 
 # ---------------------------------------------------------------------------

@@ -30,7 +30,11 @@ supersteps), each hist caller's first call in each power-of-two bin of
 batch sizes (timed for the two trees only) and its largest fold, and the
 hist pair on
 DegreeTriples' largest fold operands (a shape no real call has: the one
-earlier PRs timed). Each version must equal the plain PyTorch version on
+earlier PRs timed); and fold_count_max on that fold's slots with rows of
+16 words (this tree and the fold paths only: an earlier tree that stages
+every row has no route for them), and with 2¹⁶ slots, a table too large
+for shared memory, at W = 5 and 14 (and uniform slots at W = 5). Each
+version must equal the plain PyTorch version on
 them, except variants whose file name starts with ``timing_`` (parts of a
 kernel left out to see what the rest costs); then they are timed in turns
 (earlier, this, variants, then the reverse), each a median of CUDA-event
@@ -53,6 +57,8 @@ import subprocess
 import sys
 import warnings
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
@@ -345,6 +351,26 @@ def capture(torch, dev, scale: int):
                                                 {}), plain)
             cases[f"{k} {caller} largest"] = (b.largest(dev, caller), plain)
     slots, amounts, rows, cap = fold[0]
+    # the largest fold's slots with rows of 16 words (no real call): the
+    # earlier tree staged every row and has no route for W >= 15
+    rows16 = torch.as_tensor(np.random.default_rng(5).integers(
+        0, 2**32, (slots.shape[0], 16), dtype=np.uint64).astype(np.uint32)
+        .view(np.int32), device=dev)
+    cases["fold_count_max W16"] = (((slots, amounts, rows16, cap), {}),
+                                   fs.fold_count_max_plain)
+    # tables too large for shared memory with rows of W <= 14 words (no
+    # real call of the cells has one): the largest fold's slots into 2^16
+    # slots, at W = 5 and 14, and uniform slots at W = 5
+    big = 1 << 16
+    rows14 = torch.as_tensor(np.random.default_rng(7).integers(
+        0, 2**32, (slots.shape[0], 14), dtype=np.uint64).astype(np.uint32)
+        .view(np.int32), device=dev)
+    uniform = torch.as_tensor(np.random.default_rng(6).integers(
+        0, big, slots.shape[0], dtype=np.int32), device=dev)
+    for label, case in (("W5 cap65536", (slots, amounts, rows, big)),
+                        ("W5 cap65536 uniform", (uniform, amounts, rows, big)),
+                        ("W14 cap65536", (slots, amounts, rows14, big))):
+        cases[f"fold_count_max {label}"] = ((case, {}), fs.fold_count_max_plain)
     cases["hist_add DegreeTriples-shape"] = (((slots, amounts, cap), {}),
                                              hist.hist_add_plain)
     cases["hist_max DegreeTriples-shape"] = (((slots, rows, cap), {}),
@@ -425,6 +451,8 @@ def main() -> int:
         kernel = label.split()[0]
         fns = {"earlier": lambda k=kernel: earlier[k](*args, **kw),
                "this": lambda k=kernel: this[k](*args, **kw)}
+        if label == "fold_count_max W16":
+            del fns["earlier"]
         if " 2^" not in label:   # a bin's first call: the two trees only
             fns.update({name: (lambda f=f: f(*args, **kw))
                         for name, f in variants[kernel].items()})
