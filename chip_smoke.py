@@ -55,17 +55,27 @@ Phases (every failure ends the run with a non-zero exit):
    without hubs, with rebuilt hub tables and with a HubTableCache: every
    epoch's state and stats on the card equal the CPU's, and the
    rendering equals a one-shot stable-key survey and the oracle's count;
-   Enumerate's rows equal the oracle's triangle set.
+   Enumerate's rows equal the oracle's triangle set. The serve layer: a
+   ``SurveyService`` on the card and one on the CPU (tests/test_delta.py's
+   graph less its last 20% of edges, residents TriangleCount and
+   DegreeTriples) answer a query, a coalesced query of three tenants and
+   two ingested batches alike (answers, stats, tokens, counters);
+   checkpoint → restore → a memo-hit query launches no kernel; a query
+   thread answers while a third batch is pending, each answer equal to
+   the CPU's at its epoch.
 4. ``full``    — Graph500 R-MAT (a=0.57, b=0.19, c=0.19), scale 18, edge
    factor 16, seed 0; S=8 logical shards on the card, dense transport,
    ``plan_engine(..., push_cap=4096, pull_q_cap=16)``, through the user
    entry points (``shard_dodgr`` → ``plan_engine`` → ``survey_push_only``
-   / ``survey_push_pull``). Five paths, each with the launch counts set
+   / ``survey_push_pull``). Six paths, each with the launch counts set
    to 0 just before it and read just after:
 
    a. the first slice's: degree metadata; TriangleCount and
-      DegreeTriples(capacity=4096), push and push-pull. Push equals
-      push-pull, the DegreeTriples total equals the triangle count.
+      DegreeTriples(capacity=4096), push-pull, and push-only on the same
+      R-MAT two scales smaller (16, for the script's time: push-only is
+      host-bound; path f runs push-only at the full scale), whose count a
+      sparse product on the host gives. Each count is its graph's, the
+      DegreeTriples totals equal it.
    b. the metadata polling path: label, degree, timestamp and timestamp
       bucket metadata (``survey_meta``), one push-pull SurveyBundle of all
       eight built-ins. Its triangle count is the known 82,824,164; every
@@ -86,14 +96,28 @@ Phases (every failure ends the run with a non-zero exit):
       θ, the hub set and the hub steps as planned, the hub, push and pull
       stats as planned (the float32 sums within their rounding), the
       known count, DegreeTriples equal to path a's; walls and peak memory.
-   e. a delta stream under the stable key, push-only: the edges less a
-      seeded 0.1% (``numpy.random.default_rng(3)``) appended to an empty
-      base, then the held-out edges, each epoch through ``plan_delta(...,
+   e. a delta stream under the stable key, push-only, on path a's
+      push-only graph (scale 16): the edges less a seeded 0.1%
+      (``numpy.random.default_rng(3)``) appended to an empty base, then
+      the held-out edges, each epoch through ``plan_delta(...,
       push_cap=65536, hub_theta="auto", hub_wedge_cap=2²⁰)`` and
-      ``shard_delta`` with a HubTableCache, polling TriangleCount (alone,
-      for the script's time). After the two epochs: the known count, and
-      the epochs' tris_push + tris_hub equal to it (within float32
-      rounding).
+      ``shard_delta`` with a HubTableCache, polling TriangleCount and
+      DegreeTriples. After the two epochs: the known count, DegreeTriples
+      totalling it, and the epochs' tris_push + tris_hub equal to it
+      (within float32 rounding).
+   f. the serve layer at the full scale: ``SurveyService(path a's graph
+      less a seeded 0.1% as path e holds out, 8, mode="push",
+      push_cap=65536, hub_theta="auto", hub_wedge_cap=2²⁰,
+      cap_policy="bucket", resident={TriangleCount,
+      DegreeTriples(capacity=4096)})``; a cold ``query_coalesced`` of
+      TriangleCount and LocalVertexCount, the same again (a memo hit: no
+      launch), the held-out edges ingested as one delta epoch, and the
+      residents' answers before and after it. The first tenant equals
+      the residents' count of the base and the second sums to three
+      times it; after the epoch the residents hold the known count
+      (DegreeTriples totalling it); 3 recompiles and 0 hits. Each
+      request's wall, peak memory above what was resident, and the
+      path's launches.
 
    Every run is exact and every kernel of a path launched on it. A
    capture run (DegreeTriples and Enumerate bundled, on path a's graph)
@@ -110,10 +134,11 @@ Phases (every failure ends the run with a non-zero exit):
    its bin with the most launches) and, where at least four times larger,
    its largest fold, each equal to its plain version, ranked by launches ×
    (ms − bound); and one at DegreeTriples' largest fold (a shape no real
-   call has, kept for comparison with earlier runs); wedge_check at paths
-   d's and e's first hub superstep, fold_count_max on path a's largest
-   fold with rows of 16 words (no real call); every row with the
-   kernel's launches on each path a–e. On lines before the
+   call has, kept for comparison with earlier runs); each kernel of paths
+   d, e and f at each lane's largest launch (wedge_check's push lane and
+   hub search apart), with the lane's launches there; fold_count_max on
+   path a's largest fold with rows of 16 words (no real call); every row
+   with the kernel's launches on each path a–f. On lines before the
    JSON: wedge_intersect at the fullest and at the last pull superstep,
    the fold_count_max launch bins, and the same measures of
    fold_count_max at its typical fold.
@@ -141,7 +166,12 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 FULL_SCALE = 18                # R-MAT scale of the full-size deployment
 FULL_TRIANGLES = 82_824_164    # its triangle count (the cell's known count)
-PROFILE_PULL_STEPS = 16        # pull supersteps in the bundle's profiled window
+# path a's push-only runs and path e's delta stream run on the same R-MAT
+# this many scales below the deployment, for the script's time: their
+# push-only supersteps are host-bound, and path f runs the push-only
+# stream at the full scale
+CUT_SCALES = 2
+PROFILE_PULL_STEPS = 16        # pull supersteps in a profiled window
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 # The data sheet gives no int32 rate; its float32 rate outside the tensor
 # cores (67 T/s) is at least the int32 one, so the bound stays a lower bound
@@ -201,10 +231,11 @@ PATH_KERNELS = {
     "split": ("wedge_check", "intersect"),
     "hub": ("wedge_check", "wedge_intersect", "fold_count_max"),
     "delta": ("wedge_check", "fold_count_max"),
+    "served": ("wedge_check", "fold_count_max", "hist_add"),
 }
 # the letters PERF.md gives the full-size paths
 PATH_LETTERS = {"first": "a", "bundle": "b", "split": "c", "hub": "d",
-                "delta": "e"}
+                "delta": "e", "served": "f"}
 REPORTED_PATH = {"wedge_check": "first", "wedge_intersect": "first",
                  "fold_count_max": "first", "ring_set": "bundle",
                  "hist_add": "bundle", "hist_max": "bundle",
@@ -994,6 +1025,123 @@ def phase_small_delta(torch, report, dev):
         f"{report['small_delta_s']:.1f} s")
 
 
+SMALL_SERVE = dict(hub_theta=5, push_cap=64)   # tests/test_torch_serve.py's
+
+
+def served_answer(result, stats):
+    """A served answer, its stats less the wall time."""
+    return result, {k: v for k, v in stats.items() if k != "plan_setup_s"}
+
+
+def phase_small_serve(torch, report, dev):
+    """The serve layer at the small phases' sizes: tests/test_delta.py's
+    graph less its last 20% of edges by timestamp, S=4, residents
+    TriangleCount and DegreeTriples, one service on the card and one on
+    the CPU driven through one script: a query, a coalesced query of three
+    tenants and two ingested batches (10% each), whose answers, stats,
+    tokens and counters on the card equal the CPU's; checkpoint → restore
+    → a memo-hit query that launches no kernel; and a query thread
+    answering while a third batch is pending, each answer from a whole
+    snapshot and equal to the CPU's at its epoch."""
+    import threading
+
+    from repro_torch.core.ref import count_triangles_ref
+    from repro_torch.core.surveys import (ClosureTime, DegreeTriples,
+                                          LocalVertexCount, TriangleCount)
+    from repro_torch.graphs.csr import HostGraph
+    from repro_torch.serve import SurveyService, TenantRequest
+
+    t0 = time.perf_counter()
+    g = delta_test_graph(120, 1200, seed=4)
+    order = np.argsort(g.emeta_f[:, 0], kind="stable")
+    cut = int(g.m * 0.8)
+    b = order[:cut]
+    base = HostGraph(g.n, g.src[b], g.dst[b], g.spec, g.vmeta_i, g.vmeta_f,
+                     g.emeta_i[b], g.emeta_f[b])
+    batches = np.array_split(order[cut:], 3)
+    reqs = [TenantRequest("t0", TriangleCount()),
+            TenantRequest("t1", ClosureTime(ts_col=0)),
+            TenantRequest("t2", LocalVertexCount(g.n))]
+    out_dir = ROOT / "build" / "serve_small"
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    def script(d):
+        svc = SurveyService(base, 4, device=d, **SMALL_SERVE, resident={
+            "tc": TriangleCount(), "dt": DegreeTriples(deg_col=1)})
+        log_ = [served_answer(*svc.query(DegreeTriples(deg_col=1)))]
+        out = svc.query_coalesced(reqs)
+        log_.append({t: served_answer(*out[t]) for t in out})
+        for idx in batches[:2]:
+            append(svc, g, idx)
+            svc.flush()
+            st = svc.ingest_stats()
+            log_.append((svc.snapshot.token, svc.resident_answers(),
+                         {k: st[k] for k in st if not k.startswith("apply_s")}))
+        log_.append(served_answer(*svc.query(TriangleCount())))
+        return svc, log_
+
+    svc, on_card = script(dev)
+    cpu, on_cpu = script("cpu")
+    require(same(on_card, on_cpu), "small serve: card answers != CPU answers")
+    u = svc.snapshot.union
+    require(on_card[-1][0] == count_triangles_ref(u) == on_card[-2][1]["tc"],
+            "small serve: served count != the oracle's")
+    require(on_card[-1][1]["exact"], "small serve: inexact")
+
+    # restart: the memoized answer without a kernel launch
+    path = str(out_dir / "ckpt.npz")
+    svc.checkpoint(path)
+    restored = SurveyService.restore(path, 4, device=dev, **SMALL_SERVE)
+    sync(torch, dev)
+    before = read_launches()
+    res, st = restored.query(TriangleCount())
+    sync(torch, dev)
+    restored.close()
+    require(read_launches() == before, "small serve: the restored memo "
+            "hit launched a kernel")
+    require(res == on_card[-1][0] and st["served_from"] == "memo"
+            and st["plan_cache_hit"] == 1.0,
+            "small serve: restore did not answer from the memo")
+
+    # queries from a second thread while the third batch is pending
+    stop, seen = threading.Event(), []
+
+    def hammer():
+        while not stop.is_set():
+            res, stats = svc.query(TriangleCount())
+            seen.append((int(stats["served_epoch"]), res))
+            time.sleep(0.001)   # leave the worker most of the interpreter
+
+    t = threading.Thread(target=hammer)
+    t.start()
+    try:
+        append(svc, g, batches[2])
+        svc.flush()
+    finally:
+        stop.set()
+        t.join(timeout=300)
+    require(not t.is_alive(), "small serve: the query thread hangs")
+    require(seen, "small serve: no query answered during the ingest")
+    append(cpu, g, batches[2])
+    cpu.flush()
+    want = {2: on_cpu[-1][0], 3: cpu.query(TriangleCount())[0]}
+    for ep, res in seen:
+        require(res == want[ep], f"small serve: an answer at epoch {ep} "
+                f"{res} != CPU {want[ep]} (a torn snapshot?)")
+    require(same(svc.resident_answers(), cpu.resident_answers())
+            and want[3] == count_triangles_ref(g),
+            "small serve: residents after the third batch != CPU / oracle")
+    svc.close()
+    cpu.close()
+    card_epochs = sorted({ep for ep, _ in seen})
+    report["small_serve"] = dict(seconds=time.perf_counter() - t0,
+                                 epochs_queried=card_epochs,
+                                 queries_during_ingest=len(seen))
+    log(f"small serve: card == CPU (query, coalesced, 2 batches, restore "
+        f"from the memo, {len(seen)} queries during a third batch at epochs "
+        f"{card_epochs}), {report['small_serve']['seconds']:.1f} s")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the full-size deployment through the user entry points
 
@@ -1157,6 +1305,36 @@ def push_or_hub(args) -> str:
     return "hub" if args[0].shape[0] == 1 else "push"
 
 
+def capture_lanes(kernels):
+    """LaneCaptures of a path's kernels (wedge_check by lane)."""
+    mods = {name: mod for name, mod, *_ in KERNELS}
+    return [LaneCapture(_ops(mods[k]), k,
+                        push_or_hub if k == "wedge_check" else None)
+            for k in kernels]
+
+
+def lane_rows(path, caps, launches, dev):
+    """Restore the captured wrappers; for each kernel and lane of the path,
+    its launches there and the host copy of its largest launch's
+    operands, as ``[dict(key, name, path, lane, launches, entry)]``."""
+    for c in caps:
+        c.restore()
+    out = []
+    for c in caps:
+        require(sum(v["launches"] for v in c.lanes.values())
+                == launches[path][c.name] or dev.type != "cuda",
+                f"{path}: {c.name} launches not all captured")
+        for lane, v in sorted(c.lanes.items()):
+            out.append(dict(key=f"{c.name}_{PATH_LETTERS[path]}_{lane}",
+                            name=c.name, path=path, lane=lane,
+                            launches=v["launches"], entry=v["largest"]))
+    return out
+
+
+def copies(caps):
+    return sum(c.copy_s for c in caps)
+
+
 def memory_reset(torch, dev) -> int:
     """Reset the peak device memory count; returns the bytes allocated
     now (0 on the CPU)."""
@@ -1273,9 +1451,16 @@ def phase_full(torch, report, scale, dev):
     base = generators.rmat(scale, 16, seed=0, a=0.57, b=0.19, c=0.19)
     g = base.with_degree_meta()
     g_lab = survey_meta(base, seed=1)
+    g_cut = generators.rmat(scale - CUT_SCALES, 16, seed=0, a=0.57, b=0.19,
+                            c=0.19).with_degree_meta()
     full["gen_s"] = time.perf_counter() - t0
     full["vertices"], full["edges"] = g.n, g.m
     expect = FULL_TRIANGLES if scale == FULL_SCALE else count_triangles_ref(g)
+    t0 = time.perf_counter()
+    expect_cut = count_triangles_sparse(g_cut)
+    full["cut"] = dict(scale=scale - CUT_SCALES, vertices=g_cut.n,
+                       edges=g_cut.m, triangles=expect_cut,
+                       count_s=time.perf_counter() - t0)
     sync(torch, dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -1285,9 +1470,11 @@ def phase_full(torch, report, scale, dev):
     full["shard_s"] = time.perf_counter() - t0
     full["wedges_total"] = rstats.wedges_total
     full["e_cap"], full["d_plus_max"] = gr.e_cap, gr.d_plus_max
+    gr_cut, _ = shard_dodgr(g_cut, S, device=dev)
     log(f"full: rmat{scale} {g.n} vertices {g.m} edges, |W+|={rstats.wedges_total}, "
         f"e_cap={gr.e_cap} d+max={gr.d_plus_max}; gen {full['gen_s']:.1f} s "
-        f"shard {full['shard_s']:.1f} s")
+        f"shard {full['shard_s']:.1f} s; push-only runs and path e on "
+        f"rmat{scale - CUT_SCALES} ({g_cut.m} edges, {expect_cut} triangles)")
 
     def plan(gg, survey, mode):
         t0 = time.perf_counter()
@@ -1299,13 +1486,13 @@ def phase_full(torch, report, scale, dev):
     for sname, survey in (("TriangleCount", TriangleCount()),
                           ("DegreeTriples", DegreeTriples(capacity=4096))):
         for mode in ("push", "pushpull"):
-            cfg, plan_s = plan(g, survey, mode)
+            cfg, plan_s = plan(g_cut if mode == "push" else g, survey, mode)
             plans[(sname, mode)] = (survey, cfg, plan_s)
             log(f"plan {sname} {mode}: {plan_s:.1f} s, "
                 f"push steps {cfg.n_push_steps}, pull steps {cfg.n_pull_steps}, "
                 f"pull_edge_cap {cfg.pull_edge_cap}, pull_row_cap {cfg.pull_row_cap}")
 
-    # path a: the first slice's four runs
+    # path a: the first slice's four runs, push-only on the cut graph
     results = {}
     runs = full["runs"] = {}
 
@@ -1314,7 +1501,7 @@ def phase_full(torch, report, scale, dev):
             fn = survey_push_only if mode == "push" else survey_push_pull
             sync(torch, dev)
             t0 = time.perf_counter()
-            res, st = fn(gr, survey, cfg)
+            res, st = fn(gr_cut if mode == "push" else gr, survey, cfg)
             sync(torch, dev)
             wall = time.perf_counter() - t0
             results[(sname, mode)] = (res, st)
@@ -1335,22 +1522,27 @@ def phase_full(torch, report, scale, dev):
             or dev.type != "cuda", "fold_count_max bins miss launches")
     full["max_memory_allocated"] = (torch.cuda.max_memory_allocated()
                                     if dev.type == "cuda" else 0)
-    tc_push = results[("TriangleCount", "push")][0]
-    tc_pp = results[("TriangleCount", "pushpull")][0]
-    require(tc_push == tc_pp, f"push {tc_push} != push-pull {tc_pp}")
-    require(tc_push == expect, f"triangle count {tc_push} != {expect}")
-    for mode in ("push", "pushpull"):
+    del gr_cut
+    for mode, want in (("push", expect_cut), ("pushpull", expect)):
+        tc = results[("TriangleCount", mode)][0]
+        require(tc == want, f"{mode} triangle count {tc} != {want}")
         total = counting_total(results[("DegreeTriples", mode)][0])
-        require(total == tc_push, f"DegreeTriples {mode} total {total} != {tc_push}")
+        require(total == want, f"DegreeTriples {mode} total {total} != {want}")
     for key, (_, st) in results.items():
         require(st["exact"], f"{key} inexact")
-    full["triangles"] = tc_push
-    log(f"full: {tc_push} triangles; launches {launches['first']}; peak memory "
+    tc_pp = full["triangles"] = results[("TriangleCount", "pushpull")][0]
+    log(f"full: {tc_pp} triangles ({expect_cut} push-only on the cut graph); "
+        f"launches {launches['first']}; peak memory "
         f"{full['max_memory_allocated'] / 2**30:.2f} GiB")
     if dev.type == "cuda":
         survey, cfg, _ = plans[("TriangleCount", "pushpull")]
-        full["profile"] = profile_run(
-            torch, "TriangleCount pushpull", lambda: survey_push_pull(gr, survey, cfg))
+        window = dataclasses.replace(cfg, n_push_steps=0,
+                                     n_pull_steps=PROFILE_PULL_STEPS)
+        with warnings.catch_warnings():      # a window, inexact by design
+            warnings.simplefilter("ignore", RuntimeWarning)
+            full["profile"] = profile_run(
+                torch, f"TriangleCount pushpull, {PROFILE_PULL_STEPS} pull "
+                "supersteps", lambda: survey_push_pull(gr, survey, window))
 
     # path b: the metadata polling path, a bundle of all eight built-ins
     t0 = time.perf_counter()
@@ -1422,9 +1614,11 @@ def phase_full(torch, report, scale, dev):
     log(f"survey TriangleCount pushpull split: {full['split_s']:.2f} s == fused; "
         f"launches {launches['split']}")
 
-    lane_rows = paths_hub_delta(torch, dev, full, g, S, expect,
-                                results[("DegreeTriples", "pushpull")][0],
-                                launches)
+    lane_rows = paths_hub_delta(
+        torch, dev, full, g, S, expect,
+        results[("DegreeTriples", "pushpull")][0], launches,
+        g_cut, expect_cut)
+    lane_rows += path_served(torch, dev, full, g, S, expect, launches)
 
     # capture one superstep's inputs of each kernel: DegreeTriples and
     # Enumerate bundled on path a's graph run wedge_check, wedge_intersect,
@@ -1457,11 +1651,12 @@ def phase_full(torch, report, scale, dev):
         "hist_max": (((slots, rows, cap), {}), hist.hist_max,
                      hist.hist_max_plain),
     }
-    # paths d and e: each kernel's largest launch of each lane, and a fold
+    # paths d, e and f: each kernel's largest launch of each lane, and a fold
     # of rows of 16 words (path a's largest fold's slots)
     pairs = {"wedge_check": (wc.wedge_check, wc.wedge_check_plain),
              "wedge_intersect": (wi.wedge_intersect, wi.wedge_intersect_plain),
-             "fold_count_max": (fs.fold_count_max, fs.fold_count_max_plain)}
+             "fold_count_max": (fs.fold_count_max, fs.fold_count_max_plain),
+             "hist_add": (hist.hist_add, hist.hist_add_plain)}
     for r in lane_rows:
         args, kw = r.pop("entry")
         captured[r["key"]] = ((_on(args, dev), kw), *pairs[r["name"]])
@@ -1518,14 +1713,16 @@ def phase_full(torch, report, scale, dev):
                                               fs.fold_count_max_plain)
     sync(torch, dev)
     log("full: each kernel == its plain version on captured superstep inputs "
-        "(paths d and e: each lane's largest launch); hist_add + hist_max == "
+        "(paths d, e and f: each lane's largest launch); hist_add + hist_max == "
         "fold_count_max")
     return captured, launches, errs
 
 
-def paths_hub_delta(torch, dev, full, g, S, expect, dt_pushpull, launches):
-    """Full-size paths d (the hub lane, push-pull) and e (a delta stream
-    under the stable key, push-only) on path a's graph ``g``; their launch
+def paths_hub_delta(torch, dev, full, g, S, expect, dt_pushpull, launches,
+                    g_cut, expect_cut):
+    """Paths d (the hub lane, push-pull) on path a's graph ``g`` and e (a
+    delta stream under the stable key, push-only) on ``g_cut``, the same
+    R-MAT ``CUT_SCALES`` smaller, whose count is ``expect_cut``; their launch
     counts go into ``launches``. ``dt_pushpull`` is path a's push-pull
     DegreeTriples result. Peak memory is read with path a's shards still
     resident (``resident`` says how much that is). Each kernel of each
@@ -1539,34 +1736,6 @@ def paths_hub_delta(torch, dev, full, g, S, expect, dt_pushpull, launches):
     from repro_torch.core.pushpull import plan_delta, plan_engine
     from repro_torch.core.surveys import (DegreeTriples, SurveyBundle,
                                           TriangleCount)
-    from repro_torch.kernels.fold_scatter import ops as fs
-    from repro_torch.kernels.wedge_check import ops as wc
-    from repro_torch.kernels.wedge_intersect import ops as wi
-
-    def capture(kernels):
-        """LaneCaptures of the path's kernels (wedge_check by lane)."""
-        mods = {"wedge_check": wc, "wedge_intersect": wi,
-                "fold_count_max": fs}
-        return [LaneCapture(mods[k], k, push_or_hub if k == "wedge_check"
-                            else None) for k in kernels]
-
-    def lane_rows_of(path, caps):
-        for c in caps:
-            c.restore()
-        out = []
-        for c in caps:
-            require(sum(v["launches"] for v in c.lanes.values())
-                    == launches[path][c.name] or dev.type != "cuda",
-                    f"{path}: {c.name} launches not all captured")
-            for lane, v in sorted(c.lanes.items()):
-                out.append(dict(key=f"{c.name}_{PATH_LETTERS[path]}_{lane}",
-                                name=c.name, path=path, lane=lane,
-                                launches=v["launches"], entry=v["largest"]))
-        return out
-
-    def copies(caps):
-        return sum(c.copy_s for c in caps)
-
     # path d: the hub lane, push-pull, with the planner's θ
     hub = full["hub"] = {}
     hub_plans, hub_shards = {}, {}
@@ -1632,24 +1801,22 @@ def paths_hub_delta(torch, dev, full, g, S, expect, dt_pushpull, launches):
                 f"{hub[sname]['max_memory_allocated'] / 2**30:.2f} GiB with "
                 f"{resident / 2**30:.2f} GiB resident before")
 
-    caps_d = capture(PATH_KERNELS["hub"])
+    caps_d = capture_lanes(PATH_KERNELS["hub"])
     _, launches["hub"] = run_path(torch, dev, "hub", hub_path)
-    rows = lane_rows_of("hub", caps_d)
+    rows = lane_rows("hub", caps_d, launches, dev)
     del hub_shards, hub_plans, gr_h
 
     # path e: a delta stream under the stable key, push-only: the edges
     # less a seeded 0.1% from an empty base, then the held-out edges
     delta = full["delta"] = {}
-    rng = np.random.default_rng(3)
-    held = np.sort(rng.choice(g.m, g.m // 1000, replace=False))
-    keep = np.ones(g.m, bool)
-    keep[held] = False
+    g, expect = g_cut, expect_cut
+    held, keep = held_out(g.m)
     base_e = empty_base(g)
     survey_e = SurveyBundle([TriangleCount(), DegreeTriples(capacity=4096)])
     t0 = time.perf_counter()
     cache = HubTableCache(base_e)
     delta["cache_seed_s"] = time.perf_counter() - t0
-    caps_e = capture(PATH_KERNELS["delta"])
+    caps_e = capture_lanes(PATH_KERNELS["delta"])
 
     def delta_path():
         dg, state, tris = None, None, 0.0
@@ -1693,7 +1860,7 @@ def paths_hub_delta(torch, dev, full, g, S, expect, dt_pushpull, launches):
 
     (res_e, tris_e, adds_e), launches["delta"] = run_path(
         torch, dev, "delta", delta_path)
-    rows += lane_rows_of("delta", caps_e)
+    rows += lane_rows("delta", caps_e, launches, dev)
     require({r["key"] for r in rows} >= {"wedge_check_d_hub",
                                          "wedge_check_e_hub"}
             or dev.type != "cuda", "no hub search was launched")
@@ -1704,8 +1871,138 @@ def paths_hub_delta(torch, dev, full, g, S, expect, dt_pushpull, launches):
     require(f32_near(tris_e, expect, adds_e),
             f"the epochs' tris_push + tris_hub {tris_e} != {expect}")
     delta["tris_stat_sum"] = tris_e
-    log(f"delta stream: {expect} triangles after 2 epochs, DegreeTriples "
-        f"totals {dt_e}; launches {launches['delta']}")
+    log(f"delta stream: rmat{int(np.log2(g.n))}, {expect} triangles after 2 "
+        f"epochs, DegreeTriples totals {dt_e}; launches {launches['delta']}")
+    return rows
+
+
+def count_triangles_sparse(g) -> int:
+    """The triangle count of a host graph by a sparse product on the
+    host, independent of the engine: orient each edge from the lower to
+    the higher (degree, id), then sum (A·A) ∘ A."""
+    import scipy.sparse as sp
+
+    key = g.degrees().astype(np.int64) * g.n + np.arange(g.n)
+    up = key[g.src] < key[g.dst]
+    p, q = np.where(up, g.src, g.dst), np.where(up, g.dst, g.src)
+    a = sp.csr_matrix((np.ones(len(p), np.int64), (p, q)), shape=(g.n, g.n))
+    return int((a @ a).multiply(a).sum())
+
+
+def held_out(m: int):
+    """Path e's and f's seeded 0.1% of the edges: their indices, sorted,
+    and the mask of the edges kept."""
+    held = np.sort(np.random.default_rng(3).choice(m, m // 1000,
+                                                   replace=False))
+    keep = np.ones(m, bool)
+    keep[held] = False
+    return held, keep
+
+
+def path_served(torch, dev, full, g, S, expect, launches):
+    """Full-size path f, the serve layer: a ``SurveyService`` over path a's
+    graph ``g`` less a seeded 0.1% of its edges (``held_out``, as path e
+    holds out; push-only, the planner's hub θ, bucketed caps, residents
+    TriangleCount and DegreeTriples), asked a cold coalesced query of two
+    tenants (TriangleCount, LocalVertexCount), the same again (a memo hit
+    that launches no kernel), then fed the held-out edges as one delta
+    epoch (hub rows from its HubTableCache), and its residents' answers
+    read before and after. The first tenant equals the residents' count
+    of the base (two traversals), the residents after the epoch the known
+    count ``expect``. Peak memory is read above what was resident before
+    the service. Returns the lane rows of its kernels (as ``lane_rows``)."""
+    from repro_torch.core.surveys import (DegreeTriples, LocalVertexCount,
+                                          TriangleCount)
+    from repro_torch.graphs.csr import HostGraph
+    from repro_torch.serve import SurveyService, TenantRequest
+
+    served = full["served"] = dict(push_cap=65536, hub_wedge_cap=1 << 20)
+    held, keep = held_out(g.m)
+    g_base = HostGraph(g.n, g.src[keep], g.dst[keep], g.spec, g.vmeta_i,
+                       g.vmeta_f, g.emeta_i[keep], g.emeta_f[keep])
+    reqs = [TenantRequest("t1", TriangleCount()),
+            TenantRequest("t2", LocalVertexCount(n=g.n))]
+    walls = served["walls"] = {}
+    caps = capture_lanes(PATH_KERNELS["served"])
+
+    def timed(name, fn):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(torch, dev)
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    def served_path():
+        resident = memory_reset(torch, dev)
+        svc = timed("service", lambda: SurveyService(
+            g_base, S, mode="push", push_cap=65536, hub_theta="auto",
+            hub_wedge_cap=1 << 20, cap_policy="bucket", device=dev,
+            resident={"tc": TriangleCount(),
+                      "dt": DegreeTriples(capacity=4096)}))
+        try:
+            cold = timed("cold", lambda: svc.query_coalesced(reqs))
+            before = read_launches()
+            warm = timed("warm", lambda: svc.query_coalesced(reqs))
+            memo = {k: v - before[k] for k, v in read_launches().items()}
+            plans = [svc.cache.peek(k) for k in svc.cache.keys()]
+            base_answers = svc.resident_answers()
+            timed("ingest", lambda: svc.append_edges(
+                g.src[held], g.dst[held], emeta_i=g.emeta_i[held],
+                emeta_f=g.emeta_f[held], wait=True))
+            answers = timed("resident", svc.resident_answers)
+            ist = svc.ingest_stats()
+        finally:
+            svc.close()
+        served.update(
+            resident=resident, peak_above=peak_memory(torch, dev) - resident,
+            memo_launches=memo, ingest=ist, capture_s=copies(caps),
+            plans=[dict(hub_theta=e.cfg.hub_theta, n_hubs=e.report.n_hubs,
+                        n_push_steps=e.cfg.n_push_steps,
+                        n_hub_steps=e.cfg.n_hub_steps, e_cap=e.gr.e_cap,
+                        nbytes=e.nbytes, stats=e.raw[1]) for e in plans])
+        return cold, warm, base_answers, answers
+
+    (cold, warm, base_answers, answers), launches["served"] = run_path(
+        torch, dev, "served", served_path)
+    rows = lane_rows("served", caps, launches, dev)
+    for t in ("t1", "t2"):
+        require(same(warm[t][0], cold[t][0]), f"served {t}: warm != cold")
+        for which, (_, st) in (("cold", cold[t]), ("warm", warm[t])):
+            require(st["exact"], f"served {t} {which}: inexact")
+        require(cold[t][1]["plan_cache_hit"] == 0.0
+                and warm[t][1]["plan_cache_hit"] == 1.0
+                and warm[t][1]["served_from"] == "memo",
+                f"served {t}: the repeat was not a memo hit")
+    require(not any(served["memo_launches"].values()),
+            f"the memo hit launched {served['memo_launches']}")
+    for e in served["plans"]:
+        lost = e["stats"]["pull_overflow"] + e["stats"]["stream_dropped"]
+        require(lost == 0.0, f"a served warm-up dropped {lost} lanes")
+    t1 = cold["t1"][0]
+    require(t1 == base_answers["tc"] < expect,
+            f"served t1 {t1} != the residents' base count "
+            f"{base_answers['tc']}, or not below {expect}")
+    lvc = int(cold["t2"][0].astype(np.int64).sum())
+    require(lvc == 3 * t1, f"served t2 sums to {lvc}, not 3 * {t1}")
+    dt_base = counting_total(base_answers["dt"])
+    require(dt_base == t1, f"resident base DegreeTriples total {dt_base} != {t1}")
+    require(answers["tc"] == expect,
+            f"resident TriangleCount {answers['tc']} != {expect}")
+    dt = counting_total(answers["dt"])
+    require(dt == expect, f"resident DegreeTriples total {dt} != {expect}")
+    ist = served["ingest"]
+    require((ist["epochs_applied"], ist["jit_cache_recompiles"],
+             ist["jit_cache_hits"]) == (1, 3, 0),
+            f"served epochs / recompiles / hits {ist['epochs_applied']} / "
+            f"{ist['jit_cache_recompiles']} / {ist['jit_cache_hits']}, "
+            "not 1 / 3 / 0")
+    served.update(t1=t1, t2_sum=lvc, resident_triangles=answers["tc"])
+    log(f"served stream: walls {json.dumps(walls)}; t1 {t1}, resident "
+        f"{answers['tc']} triangles; peak "
+        f"{served['peak_above'] / 2**30:.2f} GiB above "
+        f"{served['resident'] / 2**30:.2f} GiB resident; launches "
+        f"{launches['served']}; plans {served['plans']}")
     return rows
 
 
@@ -1727,6 +2024,7 @@ def profile_run(torch, label, fn, top=12) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        t_read = time.perf_counter()   # the trace's collection and reading
     rows = []
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total",
@@ -1736,6 +2034,7 @@ def profile_run(torch, label, fn, top=12) -> dict:
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
     out = dict(label=label, wall_s=wall, device_busy_s=busy,
+               read_s=time.perf_counter() - t_read,
                idle_share=(1 - busy / wall) if busy else None,
                top=[dict(kernel=k[:120], ms=us / 1e3, count=c)
                     for us, c, k in rows[:top]],
@@ -1978,7 +2277,7 @@ def phase_timing(torch, report, captured, launches, errs):
                          **measure(torch, name, captured[name])))
         if shape:
             rows[-1].update(caller=None, fold=shape)
-    # paths d and e: each kernel's lanes at their largest launch, launches
+    # paths d, e and f: each kernel's lanes at their largest launch, launches
     # the lane's on that path
     for lane in captured["lane_rows"]:
         at = f"path {PATH_LETTERS[lane['path']]}" + {
@@ -2042,16 +2341,26 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     report = {}
+    walls = report["phase_s"] = {}
     t_start = time.perf_counter()
-    phase_build(torch, report)
-    phase_kernels(torch, report, dev)
-    phase_small(torch, report, dev)
-    phase_small_hub(torch, report, dev)
-    phase_small_delta(torch, report, dev)
-    captured, launches, errs = phase_full(torch, report, FULL_SCALE, dev)
-    kernels_line = {"kernels": phase_timing(torch, report, captured,
-                                            launches, errs)}
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(torch, report, *args)
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    phase("build", phase_build)
+    phase("kernels", phase_kernels, dev)
+    phase("small", phase_small, dev)
+    phase("small_hub", phase_small_hub, dev)
+    phase("small_delta", phase_small_delta, dev)
+    phase("small_serve", phase_small_serve, dev)
+    captured, launches, errs = phase("full", phase_full, FULL_SCALE, dev)
+    kernels_line = {"kernels": phase("timing", phase_timing, captured,
+                                     launches, errs)}
     report["total_s"] = time.perf_counter() - t_start
+    log("phase walls: " + json.dumps(walls))
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))

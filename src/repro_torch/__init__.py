@@ -7,7 +7,8 @@ main path is ``HostGraph`` → :func:`core.dodgr.shard_dodgr` →
 with all S logical shards stacked on one device, and its epoch-incremental
 form: ``HostGraph.append_edges`` → :func:`core.dodgr.shard_delta` →
 :func:`core.pushpull.plan_delta` → :func:`core.engine.survey_delta` →
-:func:`core.engine.finalize_epochs`.
+:func:`core.engine.finalize_epochs`; and the long-lived service that
+serves both from a plan cache, :class:`serve.SurveyService`.
 
 Device rule: a kernel wrapper takes its plain PyTorch version only for a
 tensor on the CPU; for a CUDA tensor it launches the hand-written CUDA

@@ -882,6 +882,18 @@ def survey_push_pull(gr: ShardedDODGr, survey: Survey, cfg: EngineConfig,
     return _finalize_run(survey, cfg, merged, stats)
 
 
+def survey_with_fn(gr: ShardedDODGr, survey: Survey, cfg: EngineConfig, fn):
+    """Run a prebuilt survey function (``make_survey_fn(survey, cfg)``, or
+    a wrapper of it) through the same provenance check and host epilogue
+    as the one-shot entry points: the serving fast path, where a plan-cache
+    hit replays the cached function on the cached shards without planning
+    or sharding again. The caller pairs ``fn`` with the ``(survey, cfg)``
+    it was built from; ``gr`` is still checked against ``cfg``."""
+    _check_provenance(gr, cfg)
+    merged, stats = fn(gr)
+    return _finalize_run(survey, cfg, merged, stats)
+
+
 # ---------------------------------------------------------------------------
 # epoch-incremental entry point (delta engine)
 

@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -29,6 +30,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+_build_lock = threading.Lock()
+# guards the wrappers' launch counters: a service's ingest worker launches
+# kernels from a second thread, and ``+=`` on a module global is not atomic
+COUNT_LOCK = threading.Lock()
 
 # ctypes argument types of the C entry points
 PTR, I64, I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -90,10 +95,11 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     lib = _libs.get(name)
     if lib is None:
-        so = build_dir() / f"lib{name}.so"
-        if not so.exists():
-            build_all()
-        lib = _libs[name] = ctypes.CDLL(str(so))
+        with _build_lock:   # two threads' first launches build once
+            so = build_dir() / f"lib{name}.so"
+            if not so.exists():
+                build_all()
+            lib = _libs[name] = ctypes.CDLL(str(so))
     return lib
 
 

@@ -63,7 +63,8 @@ def fold_count_max(slots, amounts, rows, capacity: int):
     P = _cuda.ptr
     err = fn(P(slots), P(amounts), P(rows), B, W, capacity, P(table),
              _cuda.stream_handle(dev))
-    launches += 1
+    with _cuda.COUNT_LOCK:
+        launches += 1
     _cuda.raise_on_error("fold_count_max", err)
     return table[:capacity], table[capacity:].view(capacity, W)
 
@@ -132,6 +133,7 @@ def ring_set(prior, slots, rows, capacity: int):
     err = fn(P(slots), B, capacity, P(prior), *map(P, cols),
              *(c.stride(0) for c in cols), P(win), P(out),
              _cuda.stream_handle(dev))
-    ring_set_launches += 1
+    with _cuda.COUNT_LOCK:
+        ring_set_launches += 1
     _cuda.raise_on_error("ring_set", err)
     return out

@@ -74,7 +74,8 @@ def hist_add(slots, amounts, capacity: int):
     P = _cuda.ptr
     err = fn(P(slots), P(amounts), B, capacity, P(count),
              _cuda.stream_handle(dev))
-    hist_add_launches += 1
+    with _cuda.COUNT_LOCK:
+        hist_add_launches += 1
     _cuda.raise_on_error("hist_add", err)
     return count
 
@@ -101,6 +102,7 @@ def hist_max(slots, rows, capacity: int):
     P = _cuda.ptr
     err = fn(P(slots), P(rows), B, W, capacity, P(packed),
              _cuda.stream_handle(dev))
-    hist_max_launches += 1
+    with _cuda.COUNT_LOCK:
+        hist_max_launches += 1
     _cuda.raise_on_error("hist_max", err)
     return packed

@@ -65,6 +65,7 @@ def intersect(row_d, row_h, row_i, ln, qd, qh, qi):
     P = _cuda.ptr
     err = fn(P(row_d), P(row_h), P(row_i), P(ln), P(qd), P(qh), P(qi), B, L,
              P(pos), _cuda.stream_handle(dev))
-    launches += 1
+    with _cuda.COUNT_LOCK:
+        launches += 1
     _cuda.raise_on_error("intersect", err)
     return pos

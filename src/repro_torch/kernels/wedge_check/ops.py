@@ -70,6 +70,7 @@ def wedge_check(keys_d, keys_h, keys_i, lo, hi, qd, qh, qi):
     P = _cuda.ptr
     err = fn(P(keys_d), P(keys_h), P(keys_i), S, E, P(lo), P(hi), P(qd),
              P(qh), P(qi), B, P(out), _cuda.stream_handle(dev))
-    launches += 1
+    with _cuda.COUNT_LOCK:
+        launches += 1
     _cuda.raise_on_error("wedge_check", err)
     return out

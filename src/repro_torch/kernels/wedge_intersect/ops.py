@@ -80,6 +80,7 @@ def wedge_intersect(keys_d, keys_h, keys_i, e, row_d, row_h, row_i, ln,
     err = fn(P(keys_d), P(keys_h), P(keys_i), E, P(e), P(row_d), P(row_h),
              P(row_i), P(ln), B, Lr, L, P(pos), P(ci),
              _cuda.stream_handle(dev))
-    launches += 1
+    with _cuda.COUNT_LOCK:
+        launches += 1
     _cuda.raise_on_error("wedge_intersect", err)
     return pos, ci

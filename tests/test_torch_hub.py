@@ -67,10 +67,11 @@ CASES = [("rmat9", "pushpull", "dense"), ("rmat9", "push", "ragged"),
 
 
 class Hubs:
-    """Graphs, shards and reference runs of the hub lane, built once."""
+    """Graphs, shards, plans and reference runs of the hub lane, built
+    once."""
 
     def __init__(self):
-        self.g, self.gr, self.ref = {}, {}, {}
+        self.g, self.gr, self.ref, self.plans = {}, {}, {}, {}
 
     def graph(self, name):
         if name not in self.g:
@@ -84,14 +85,18 @@ class Hubs:
         return self.g[name], self.gr[name]
 
     def plan(self, name, mode, transport):
-        g, _ = self.graph(name)
-        kw = dict(mode=mode, push_cap=128, pull_q_cap=8, transport=transport,
-                  hub_theta=GRAPHS[name][1], hub_wedge_cap=128)
-        n = g["pt"].n
-        rc, _ = ref_pp.plan_engine(g["ref"], 4, bundle8(ref_sv, n), **kw)
-        pc, _ = pt_pp.plan_engine(g["pt"], 4, bundle8(pt_sv, n), **kw)
-        assert dataclasses.asdict(pc) == dataclasses.asdict(rc)
-        return rc, pc
+        key = (name, mode, transport)
+        if key not in self.plans:
+            g, _ = self.graph(name)
+            kw = dict(mode=mode, push_cap=128, pull_q_cap=8,
+                      transport=transport, hub_theta=GRAPHS[name][1],
+                      hub_wedge_cap=128)
+            n = g["pt"].n
+            rc, _ = ref_pp.plan_engine(g["ref"], 4, bundle8(ref_sv, n), **kw)
+            pc, _ = pt_pp.plan_engine(g["pt"], 4, bundle8(pt_sv, n), **kw)
+            assert dataclasses.asdict(pc) == dataclasses.asdict(rc)
+            self.plans[key] = rc, pc
+        return self.plans[key]
 
     def ref_run(self, name, mode, transport):
         key = (name, mode, transport)
