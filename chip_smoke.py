@@ -62,19 +62,28 @@ Phases (every failure ends the run with a non-zero exit):
    two ingested batches alike (answers, stats, tokens, counters);
    checkpoint → restore → a memo-hit query launches no kernel; a query
    thread answers while a third batch is pending, each answer equal to
-   the CPU's at its epoch.
+   the CPU's at its epoch. The mesh: S=4 rank processes sharing the card
+   over gloo (``repro_torch.launch.mesh``; each collective staged through
+   host memory) run karate and rmat(9, 16) with seeded metadata: the
+   bundle of all eight, push and push-pull, over scheduled rounds
+   (ragged caps) and over uniform caps (a dense plan relabelled mesh);
+   one split-lane run; a forced-θ hub cell; and a K = 2 delta stream of
+   tests/test_delta.py's graph. Every rank's state, stats and result
+   equal the card's stacked run and the CPU's; the bytes handed to the
+   collectives equal the plan's; every kernel launched in the ranks. Over
+   nccl too, one rank per card, where there are four cards (otherwise one
+   line says it was not run).
 4. ``full``    — Graph500 R-MAT (a=0.57, b=0.19, c=0.19), scale 18, edge
    factor 16, seed 0; S=8 logical shards on the card, dense transport,
    ``plan_engine(..., push_cap=4096, pull_q_cap=16)``, through the user
    entry points (``shard_dodgr`` → ``plan_engine`` → ``survey_push_only``
-   / ``survey_push_pull``). Six paths, each with the launch counts set
-   to 0 just before it and read just after:
+   / ``survey_push_pull``). Seven paths, each with the launch counts set
+   to 0 just before it and read just after (path g: in each rank):
 
    a. the first slice's: degree metadata; TriangleCount and
       DegreeTriples(capacity=4096), push-pull, and push-only on the same
       R-MAT two scales smaller (16, for the script's time: push-only is
-      host-bound; path f runs push-only at the full scale), whose count a
-      sparse product on the host gives. Each count is its graph's, the
+      host-bound), whose count a sparse product on the host gives. Each count is its graph's, the
       DegreeTriples totals equal it.
    b. the metadata polling path: label, degree, timestamp and timestamp
       bucket metadata (``survey_meta``), one push-pull SurveyBundle of all
@@ -105,7 +114,8 @@ Phases (every failure ends the run with a non-zero exit):
       DegreeTriples. After the two epochs: the known count, DegreeTriples
       totalling it, and the epochs' tris_push + tris_hub equal to it
       (within float32 rounding).
-   f. the serve layer at the full scale: ``SurveyService(path a's graph
+   f. the serve layer on path a's push-only graph (scale 16, for the
+      script's time): ``SurveyService(that graph
       less a seeded 0.1% as path e holds out, 8, mode="push",
       push_cap=65536, hub_theta="auto", hub_wedge_cap=2²⁰,
       cap_policy="bucket", resident={TriangleCount,
@@ -118,6 +128,21 @@ Phases (every failure ends the run with a non-zero exit):
       (DegreeTriples totalling it); 3 recompiles and 0 hits. Each
       request's wall, peak memory above what was resident, and the
       path's launches.
+   g. the mesh transport: path a's shards saved once, one file per rank;
+      S=8 rank processes sharing the card over gloo, each loading its
+      slice: TriangleCount push-pull on a ``transport="mesh"`` plan
+      (ragged caps in scheduled rounds, one ``batch_isend_irecv`` each)
+      and DegreeTriples push-pull on path a's dense plan relabelled mesh
+      (uniform caps, one ``all_to_all_single``), each rank's result equal
+      to path a's bit for bit, the stats within their float32 rounding
+      of the plan, the bytes handed to the collectives per lane equal to
+      the plan's. Spawn and set-up seconds, each survey's wall, the
+      largest rank's peak memory, the seconds in the collectives and in
+      the staging copies, and the launches summed over the ranks (each
+      rank's counts set to 0 just before each survey and read just
+      after). Over nccl too, one rank per card, where there are eight
+      cards; otherwise one line says it was not run and how many cards
+      there are.
 
    Every run is exact and every kernel of a path launched on it. A
    capture run (DegreeTriples and Enumerate bundled, on path a's graph)
@@ -136,9 +161,11 @@ Phases (every failure ends the run with a non-zero exit):
    (ms − bound); and one at DegreeTriples' largest fold (a shape no real
    call has, kept for comparison with earlier runs); each kernel of paths
    d, e and f at each lane's largest launch (wedge_check's push lane and
-   hub search apart), with the lane's launches there; fold_count_max on
-   path a's largest fold with rows of 16 words (no real call); every row
-   with the kernel's launches on each path a–f. On lines before the
+   hub search apart), with the lane's launches there; wedge_check and
+   wedge_intersect at rank 0's largest launch on path g, with path g's
+   launches; fold_count_max on path a's largest fold with rows of 16
+   words (no real call); every row with the kernel's launches on each
+   path a–g. On lines before the
    JSON: wedge_intersect at the fullest and at the last pull superstep,
    the fold_count_max launch bins, and the same measures of
    fold_count_max at its typical fold.
@@ -166,10 +193,10 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 FULL_SCALE = 18                # R-MAT scale of the full-size deployment
 FULL_TRIANGLES = 82_824_164    # its triangle count (the cell's known count)
-# path a's push-only runs and path e's delta stream run on the same R-MAT
-# this many scales below the deployment, for the script's time: their
-# push-only supersteps are host-bound, and path f runs the push-only
-# stream at the full scale
+# path a's push-only runs, path e's delta stream and path f's service run
+# on the same R-MAT this many scales below the deployment, for the
+# script's time (its limit is the same while paths are added): their
+# push-only supersteps are host-bound
 CUT_SCALES = 2
 PROFILE_PULL_STEPS = 16        # pull supersteps in a profiled window
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
@@ -232,10 +259,11 @@ PATH_KERNELS = {
     "hub": ("wedge_check", "wedge_intersect", "fold_count_max"),
     "delta": ("wedge_check", "fold_count_max"),
     "served": ("wedge_check", "fold_count_max", "hist_add"),
+    "mesh": ("wedge_check", "wedge_intersect", "fold_count_max"),
 }
 # the letters PERF.md gives the full-size paths
 PATH_LETTERS = {"first": "a", "bundle": "b", "split": "c", "hub": "d",
-                "delta": "e", "served": "f"}
+                "delta": "e", "served": "f", "mesh": "g"}
 REPORTED_PATH = {"wedge_check": "first", "wedge_intersect": "first",
                  "fold_count_max": "first", "ring_set": "bundle",
                  "hist_add": "bundle", "hist_max": "bundle",
@@ -1146,6 +1174,226 @@ def phase_small_serve(torch, report, dev):
 # phase 4: the full-size deployment through the user entry points
 
 
+# ---------------------------------------------------------------------------
+# the mesh: one shard per torch.distributed rank, ranks sharing the card
+
+
+MESH_SMALL_S = 4
+MESH_FULL_S = 8
+
+
+def mesh_workdir(name: str) -> Path:
+    return ROOT / "build" / "mesh" / name
+
+
+def mesh_bytes_expected(cfg, rep, gr, S):
+    """Per lane of a mesh plan: (bytes handed to the collectives summed
+    over ranks, the most one rank may hand over). Uniform caps: the
+    all-to-all block, self chunk included, which is the VolumeReport's
+    wire bytes; scheduled rounds: each source's padded slice
+    (``sent_round_slots``), and per rank at most the schedule's padded
+    slots (the JAX package's per-device count)."""
+    from repro_torch.comm.mesh_exchange import MeshExchange
+
+    w_push, w_row, w_hdr, w_req = cfg.meta_widths
+    Lr = cfg.pull_row_cap if cfg.pull_row_cap else gr.d_plus_max
+    lanes = {"push": (cfg.n_push_steps, cfg.push_cap, cfg.push_caps, w_push,
+                      rep.wire_push_bytes)}
+    if cfg.mode == "pushpull" and cfg.n_pull_steps:
+        for lane, w, vol in (("req", w_req, rep.wire_req_bytes),
+                             ("reply", w_hdr + Lr * w_row, rep.wire_reply_bytes)):
+            lanes[lane] = (cfg.n_pull_steps, cfg.pull_q_cap, cfg.pull_caps,
+                           w, vol)
+    out = {}
+    for lane, (steps, cap, caps, w, vol) in lanes.items():
+        mx = MeshExchange(np.full((S, S), cap) if caps is None
+                          else np.asarray(caps))
+        total = steps * mx.sent_round_slots() * w * 4
+        if mx.uniform:
+            require(total == vol, f"{lane}: uniform bytes {total} != plan {vol}")
+        out[lane] = (total, steps * mx.wire_round_slots() * w * 4, mx.uniform)
+    return out
+
+
+def check_mesh_bytes(tag, outs, expected):
+    """Bytes handed to the collectives, per lane, summed over the ranks'
+    outputs ``outs`` of one job, against ``mesh_bytes_expected``."""
+    for lane, (total, per_rank_max, uniform) in expected.items():
+        got = [o["bytes"].get(lane, 0) for o in outs]
+        require(sum(got) == total,
+                f"{tag}: {lane} bytes {sum(got)} != planned {total}")
+        require(max(got) <= per_rank_max,
+                f"{tag}: a rank handed {max(got)} {lane} bytes, more than "
+                f"the schedule's {per_rank_max}")
+
+
+def mesh_summary(ranks, index) -> dict:
+    """Per job: the wall (the slowest rank), peak memory (the largest
+    rank's), seconds in collectives and in staging (the slowest rank's,
+    and summed), bytes per lane and kernel launches summed over ranks."""
+    out = {}
+    for key, i in index.items():
+        outs = [r["outputs"][i] for r in ranks]
+        out[key] = dict(
+            wall_s=max(o["wall_s"] for o in outs),
+            peak=max(o["peak"] for o in outs),
+            resident=max(o["resident"] for o in outs),
+            wire_s_max=max(o["wire_s"] for o in outs),
+            wire_s_sum=sum(o["wire_s"] for o in outs),
+            stage_s_max=max(o["stage_s"] for o in outs),
+            stage_s_sum=sum(o["stage_s"] for o in outs),
+            bytes={k: sum(o["bytes"].get(k, 0) for o in outs)
+                   for k in sorted({k for o in outs for k in o["bytes"]})},
+            launches={k: sum(o["launches"][k] for o in outs)
+                      for k in outs[0]["launches"]})
+    return out
+
+
+def phase_small_mesh(torch, report, dev):
+    """The mesh at small sizes: karate and rmat(9, 16) with seeded
+    metadata and tests/test_delta.py's graph, S=4 ranks sharing the card
+    over gloo (the transport stages each collective through host memory):
+    the bundle of all eight, push and push-pull, over scheduled rounds
+    (ragged caps) and over uniform caps (a dense plan relabelled mesh:
+    all_to_all_single); one split-lane run; a forced-θ hub cell; a K = 2
+    delta stream. Each rank's result and stats equal the card's stacked
+    run and the CPU's, bit for bit; the bytes handed to the collectives
+    equal the plan's. Over nccl too, one rank per card, where there are
+    four cards."""
+    from repro_torch.core.dodgr import shard_delta, shard_dodgr
+    from repro_torch.core.engine import (finalize_epochs, make_survey_fn,
+                                         survey_delta)
+    from repro_torch.core.pushpull import plan_delta, plan_engine
+    from repro_torch.core.ref import count_triangles_ref
+    from repro_torch.graphs import generators
+    from repro_torch.graphs.csr import HostGraph
+    from repro_torch.interop import state_to_numpy
+    from repro_torch.launch.mesh import RankRun
+
+    S = MESH_SMALL_S
+    t0 = time.perf_counter()
+    e = np.array(KARATE_EDGES, np.int64)
+    graphs = {"karate": HostGraph.from_edges(34, e[:, 0], e[:, 1]),
+              "rmat9": generators.rmat(9, 16, seed=0)}
+    jobs, index, want = [], {}, {}
+
+    def stacked(survey, cfg, gr_pair):
+        out = []
+        for gr in gr_pair:
+            merged, st = make_survey_fn(survey, cfg)(gr)
+            out.append((state_to_numpy(merged), st, survey.finalize(merged)))
+        return out
+
+    for gname, g in graphs.items():
+        theta, hub_cap, push_cap, pull_q_cap = SMALL_HUB[gname]
+        g_lab = survey_meta(g, seed=2)
+        t_ref = count_triangles_ref(g_lab)
+        shards = {th: tuple(shard_dodgr(g_lab, S, hub_theta=th, device=d)[0]
+                            for d in (dev, "cpu")) for th in (0, theta)}
+        cells = [(mode, cell, "fused") for mode in ("push", "pushpull")
+                 for cell in ("ragged", "uniform")]
+        cells += [("pushpull", "hub", "fused")]
+        if gname == "rmat9":
+            cells += [("pushpull", "ragged", "split")]
+        for mode, cell, kernel in cells:
+            survey = bundle_of_all(g.n, enum_cap=32)
+            th = theta if cell == "hub" else 0
+            kw = dict(mode=mode, push_cap=push_cap, pull_q_cap=pull_q_cap,
+                      hub_theta=th, hub_wedge_cap=hub_cap)
+            stk = "dense" if cell == "uniform" else "ragged"
+            cfg, rep = plan_engine(g_lab, S, survey, transport=stk, **kw)
+            mcfg = cfg if cell == "uniform" else plan_engine(
+                g_lab, S, survey, transport="mesh", **kw)[0]
+            require(dataclasses.replace(mcfg, transport=stk) == cfg,
+                    f"{gname} {cell}: the mesh plan's caps != {stk}'s")
+            cfg = dataclasses.replace(cfg, pull_kernel=kernel)
+            mcfg = dataclasses.replace(mcfg, transport="mesh", pull_kernel=kernel)
+            key = (gname, mode, cell, kernel)
+            card, cpu = stacked(survey, cfg, shards[th])
+            require(same(card, cpu), f"mesh {key}: stacked card != CPU")
+            require(card[2]["TriangleCount"] == t_ref,
+                    f"mesh {key}: stacked count != oracle {t_ref}")
+            want[key] = (card, mesh_bytes_expected(mcfg, rep, shards[th][1], S))
+            index[key] = len(jobs)
+            jobs.append(dict(kind="survey", gr=shards[th][1], survey=survey,
+                             cfg=mcfg, entry="fn"))
+    # a K = 2 delta stream, push-pull, from an empty base
+    g = delta_test_graph(120, 1200, seed=4)
+    batches = np.array_split(np.argsort(g.emeta_f[:, 0], kind="stable"), 2)
+    survey = delta_bundle(g.n)
+    dg, grs, cfgs, states, stats = None, [], [], [None, None], [[], []]
+    for idx in batches:
+        dg = append(dg if dg is not None else empty_base(g), g, idx)
+        cfg, _ = plan_delta(dg, S, survey, mode="pushpull", push_cap=64,
+                            pull_q_cap=4, transport="mesh")
+        for i, d in enumerate((dev, "cpu")):
+            gr, _ = shard_delta(dg, S, device=d)
+            states[i], st = survey_delta(
+                gr, survey, dataclasses.replace(cfg, transport="ragged"),
+                states[i])
+            stats[i].append(st)
+        grs.append(gr)
+        cfgs.append(cfg)
+    card = (state_to_numpy(states[0]), stats[0], finalize_epochs(survey, states[0]))
+    require(same(card, (state_to_numpy(states[1]), stats[1],
+                        finalize_epochs(survey, states[1]))),
+            "mesh delta: stacked card != CPU")
+    require(card[2]["TriangleCount"] == count_triangles_ref(g),
+            "mesh delta: stacked count != oracle")
+    want[("delta",)] = (card, None)
+    index[("delta",)] = len(jobs)
+    jobs.append(dict(kind="delta", grs=grs, cfgs=cfgs, survey=survey))
+    def run(backend):
+        t_spawn = time.perf_counter()
+        ranks = RankRun(S, jobs, mesh_workdir("small") / backend,
+                        backend=backend,
+                        device=None if dev.type == "cuda" else "cpu",
+                        timeout=600).start().wait()
+        spawn_s = time.perf_counter() - t_spawn
+        for key, i in index.items():
+            (w_state, w_stats, w_result), expected = want[key]
+            outs = [r["outputs"][i] for r in ranks]
+            for r, o in enumerate(outs):
+                tag = f"mesh {backend} {key} rank {r}"
+                require(same(o["state"], w_state), f"{tag}: state != stacked")
+                require(o["stats"] == w_stats, f"{tag}: stats != stacked")
+                require(same(o["result"], w_result),
+                        f"{tag}: result != stacked")
+            if expected is not None:
+                check_mesh_bytes(f"mesh {backend} {key}", outs, expected)
+        summary = mesh_summary(ranks, index)
+        launches = {k: sum(s["launches"][k] for s in summary.values())
+                    for k in summary[("delta",)]["launches"]}
+        for k in ("wedge_check", "wedge_intersect", "fold_count_max",
+                  "ring_set", "hist_add", "hist_max", "intersect"):
+            require(launches[k] > 0 or dev.type != "cuda",
+                    f"small mesh {backend}: {k} never launched in the ranks")
+        staged = sum(s["stage_s_sum"] for s in summary.values())
+        cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+        where = {"nccl": "one rank per card (",
+                 "gloo": f"on {min(cards, S)} card(s) (host-staged "
+                 "collectives, " if cards else "on the CPU ("}[backend]
+        log(f"small mesh: {len(jobs)} runs on {S} ranks over {backend} "
+            f"{where}{staged:.2f} s staging over all ranks), each rank == "
+            f"card stacked == CPU, bytes == plan; spawn {spawn_s:.1f} s "
+            f"(ranks ready after {max(r['ready_s'] for r in ranks):.1f} s); "
+            f"launches in the ranks {launches}")
+        return dict(runs=len(jobs), spawn_s=spawn_s,
+                    ready_s=[r["ready_s"] for r in ranks], launches=launches,
+                    jobs={" ".join(map(str, k)): v
+                          for k, v in summary.items()})
+
+    report["small_mesh"] = run("gloo")
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if cards >= S:
+        report["small_mesh_nccl"] = run("nccl")
+    else:
+        log(f"small mesh: NCCL not run: {cards} card(s) seen; nccl needs "
+            f"one card per rank ({S})")
+    report["small_mesh_s"] = time.perf_counter() - t0
+    log(f"small mesh: {report['small_mesh_s']:.1f} s")
+
+
 def _on(args, dev):
     return tuple(a.to(dev) if hasattr(a, "to") else a for a in args)
 
@@ -1478,15 +1726,16 @@ def phase_full(torch, report, scale, dev):
 
     def plan(gg, survey, mode):
         t0 = time.perf_counter()
-        cfg, _ = plan_engine(gg, S, survey, mode=mode, push_cap=4096,
-                             pull_q_cap=16)
-        return cfg, time.perf_counter() - t0
+        cfg, rep = plan_engine(gg, S, survey, mode=mode, push_cap=4096,
+                               pull_q_cap=16)
+        return cfg, time.perf_counter() - t0, rep
 
-    plans = {}
+    plans, reports = {}, {}
     for sname, survey in (("TriangleCount", TriangleCount()),
                           ("DegreeTriples", DegreeTriples(capacity=4096))):
         for mode in ("push", "pushpull"):
-            cfg, plan_s = plan(g_cut if mode == "push" else g, survey, mode)
+            cfg, plan_s, reports[(sname, mode)] = plan(
+                g_cut if mode == "push" else g, survey, mode)
             plans[(sname, mode)] = (survey, cfg, plan_s)
             log(f"plan {sname} {mode}: {plan_s:.1f} s, "
                 f"push steps {cfg.n_push_steps}, pull steps {cfg.n_pull_steps}, "
@@ -1550,7 +1799,7 @@ def phase_full(torch, report, scale, dev):
     sync(torch, dev)
     full["bundle_shard_s"] = time.perf_counter() - t0
     bundle = bundle_of_all(g_lab.n, enum_cap=2**20)
-    cfg_b, plan_s = plan(g_lab, bundle, "pushpull")
+    cfg_b, plan_s, _ = plan(g_lab, bundle, "pushpull")
     full["bundle_plan"] = dict(
         plan_s=plan_s, n_push_steps=cfg_b.n_push_steps,
         n_pull_steps=cfg_b.n_pull_steps, pull_edge_cap=cfg_b.pull_edge_cap,
@@ -1618,7 +1867,9 @@ def phase_full(torch, report, scale, dev):
         torch, dev, full, g, S, expect,
         results[("DegreeTriples", "pushpull")][0], launches,
         g_cut, expect_cut)
-    lane_rows += path_served(torch, dev, full, g, S, expect, launches)
+    lane_rows += path_served(torch, dev, full, g_cut, S, expect_cut, launches)
+    lane_rows += path_mesh(torch, dev, full, g, gr, expect, plans, reports,
+                           results, launches)
 
     # capture one superstep's inputs of each kernel: DegreeTriples and
     # Enumerate bundled on path a's graph run wedge_check, wedge_intersect,
@@ -1900,7 +2151,7 @@ def held_out(m: int):
 
 
 def path_served(torch, dev, full, g, S, expect, launches):
-    """Full-size path f, the serve layer: a ``SurveyService`` over path a's
+    """Path f, the serve layer: a ``SurveyService`` over path a's push-only
     graph ``g`` less a seeded 0.1% of its edges (``held_out``, as path e
     holds out; push-only, the planner's hub θ, bucketed caps, residents
     TriangleCount and DegreeTriples), asked a cold coalesced query of two
@@ -2003,6 +2254,135 @@ def path_served(torch, dev, full, g, S, expect, launches):
         f"{served['peak_above'] / 2**30:.2f} GiB above "
         f"{served['resident'] / 2**30:.2f} GiB resident; launches "
         f"{launches['served']}; plans {served['plans']}")
+    return rows
+
+
+def path_mesh(torch, dev, full, g, gr, expect, plans, reports, results,
+              launches):
+    """Full-size path g, the mesh transport: path a's graph ``g`` and its
+    stacked shards ``gr`` (saved once, one file per rank, each rank
+    loading its slice), S=8 rank processes sharing the card over gloo
+    (every collective staged through host memory). TriangleCount
+    push-pull on a ``transport="mesh"`` plan (ragged caps, scheduled
+    rounds) equals path a's count, the known ``expect``; DegreeTriples
+    push-pull on path a's dense plan relabelled mesh (uniform caps:
+    all_to_all_single) equals path a's bit for bit. The stats within
+    their float32 rounding of the plan; the bytes handed to the
+    collectives equal the plan's. Over nccl too where there is a card
+    per rank. Returns rows of rank 0's largest wedge_check and
+    wedge_intersect launches (as ``lane_rows``)."""
+    from repro_torch.core.pushpull import plan_engine
+    from repro_torch.launch.mesh import RankRun, save_slices
+
+    S = MESH_FULL_S
+    require(gr.S == S, f"path g needs path a's {S} shards")
+    mesh = full["mesh"] = dict(S=S, backend="gloo")
+    survey_tc, _, _ = plans[("TriangleCount", "pushpull")]
+    survey_dt, cfg_dt, _ = plans[("DegreeTriples", "pushpull")]
+    t0 = time.perf_counter()
+    cfg_tc, rep_tc = plan_engine(g, S, survey_tc, mode="pushpull",
+                                 push_cap=4096, pull_q_cap=16,
+                                 transport="mesh")
+    mesh["plan_s"] = time.perf_counter() - t0
+    cfg_dt = dataclasses.replace(cfg_dt, transport="mesh")
+    rep_dt = reports[("DegreeTriples", "pushpull")]
+    wd = mesh_workdir("full")
+    t0 = time.perf_counter()
+    save_slices(gr, wd / "slices")
+    mesh["save_s"] = time.perf_counter() - t0
+    src = str(wd / "slices" / "slice{rank}.pt")
+    jobs = [dict(kind="survey", gr=src, survey=survey_tc, cfg=cfg_tc,
+                 entry="pushpull", capture=("wedge_check", "wedge_intersect")),
+            dict(kind="survey", gr=src, survey=survey_dt, cfg=cfg_dt,
+                 entry="pushpull")]
+    expected = [mesh_bytes_expected(cfg_tc, rep_tc, gr, S),
+                mesh_bytes_expected(cfg_dt, rep_dt, gr, S)]
+    mesh["schedule"] = dict(
+        push=(rep_tc.sched_push_rounds, rep_tc.sched_push_slots,
+              rep_tc.naive_push_rounds, rep_tc.naive_push_slots),
+        req=(rep_tc.sched_req_rounds, rep_tc.sched_req_slots,
+             rep_tc.naive_req_rounds, rep_tc.naive_req_slots))
+    log(f"plan mesh TriangleCount pushpull: {mesh['plan_s']:.1f} s, push "
+        f"steps {cfg_tc.n_push_steps}, pull steps {cfg_tc.n_pull_steps}; "
+        f"scheduled (rounds, slots) vs rotation: {mesh['schedule']}; slices "
+        f"saved in {mesh['save_s']:.1f} s")
+
+    def run(backend):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        reset_launches()
+        t0 = time.perf_counter()
+        ranks = RankRun(S, jobs, wd / backend, backend=backend,
+                        device=None if dev.type == "cuda" else "cpu",
+                        timeout=900).start().wait()
+        wall = time.perf_counter() - t0
+        require(not any(read_launches().values()),
+                "the parent launched a kernel during path g")
+        summary = mesh_summary(ranks, {"TriangleCount": 0, "DegreeTriples": 1})
+        for i, name in enumerate(("TriangleCount", "DegreeTriples")):
+            want = results[(name, "pushpull")][0]
+            outs = [r["outputs"][i] for r in ranks]
+            for r, o in enumerate(outs):
+                tag = f"path g {backend} {name} rank {r}"
+                require(same(o["result"], want), f"{tag}: != path a's")
+                require(o["stats"]["exact"], f"{tag}: inexact")
+            check_mesh_bytes(f"path g {backend} {name}", outs, expected[i])
+            cfg, rep = ((cfg_tc, rep_tc), (cfg_dt, rep_dt))[i]
+            st = outs[0]["stats"]
+            adds_push = cfg.n_push_steps * S + S
+            adds_pull = cfg.n_pull_steps * S + S
+            require(f32_near(st["wedges_pushed"], rep.pushpull_push_entries,
+                             adds_push), f"path g {name}: pushed wedges != plan")
+            require(f32_near(st["pull_requests"], rep.pushpull_requests,
+                             adds_pull), f"path g {name}: pull requests != plan")
+            require(f32_near(st["tris_push"] + st["tris_pull"], expect,
+                             adds_push + adds_pull),
+                    f"path g {name}: tris_push + tris_pull != {expect}")
+            for k, vol in (("wire_push_words", rep.wire_push_bytes),
+                           ("wire_req_words", rep.wire_req_bytes),
+                           ("wire_reply_words", rep.wire_reply_bytes)):
+                require(f32_near(st[k], vol // 4, max(cfg.n_push_steps,
+                                                      cfg.n_pull_steps)),
+                        f"path g {name}: {k} {st[k]} != plan {vol // 4}")
+            summary[name]["stats"] = st
+        total = {k: sum(s["launches"][k] for s in summary.values())
+                 for k in summary["TriangleCount"]["launches"]}
+        for k in PATH_KERNELS["mesh"]:
+            require(total[k] > 0 or dev.type != "cuda",
+                    f"{k} never launched on path g ({backend})")
+        out = dict(wall_s=wall, ready_s=max(r["ready_s"] for r in ranks),
+                   jobs=summary, launches=total)
+        for name, s in summary.items():
+            log(f"path g {backend} {name} pushpull: {s['wall_s']:.2f} s (the "
+                f"slowest rank), peak {s['peak'] / 2**30:.2f} GiB (the largest "
+                f"rank's, {s['resident'] / 2**30:.2f} resident); collectives "
+                f"{s['wire_s_max']:.2f} s, staging {s['stage_s_max']:.2f} s "
+                f"(the slowest rank; summed {s['wire_s_sum']:.2f} / "
+                f"{s['stage_s_sum']:.2f}); bytes {s['bytes']} == plan; "
+                f"launches {s['launches']}")
+        log(f"path g {backend}: {S} ranks ready {out['ready_s']:.1f} s after "
+            f"the spawn, whole path {wall:.1f} s; launches over the ranks "
+            f"{total}")
+        return ranks, out
+
+    ranks, mesh["gloo"] = run("gloo")
+    launches["mesh"] = mesh["gloo"]["launches"]
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if cards >= S:
+        _, mesh["nccl"] = run("nccl")
+    else:
+        mesh["nccl"] = f"not run: {cards} card(s) seen, {S} ranks need {S}"
+        log(f"path g: NCCL not run: {cards} card(s) seen; nccl needs one "
+            f"card per rank ({S})")
+    rows = []
+    for name, entry in ranks[0]["outputs"][0]["captured"].items():
+        require(entry is not None or dev.type != "cuda",
+                f"path g: rank 0 captured no {name} launch")
+        if entry is not None:
+            rows.append(dict(key=f"{name}_g_rank0", name=name, path="mesh",
+                             lane="rank0", launches=launches["mesh"][name],
+                             entry=entry))
     return rows
 
 
@@ -2281,7 +2661,8 @@ def phase_timing(torch, report, captured, launches, errs):
     # the lane's on that path
     for lane in captured["lane_rows"]:
         at = f"path {PATH_LETTERS[lane['path']]}" + {
-            "hub": ", hub search", "push": ", push lane"}.get(lane["lane"], "")
+            "hub": ", hub search", "push": ", push lane",
+            "rank0": ", rank 0"}.get(lane["lane"], "")
         rows.append(dict(
             commons[lane["name"]], launches=lane["launches"],
             max_abs_err=errs[lane["key"]], at=f"{at}: its largest launch",
@@ -2356,6 +2737,7 @@ def main() -> int:
     phase("small_hub", phase_small_hub, dev)
     phase("small_delta", phase_small_delta, dev)
     phase("small_serve", phase_small_serve, dev)
+    phase("small_mesh", phase_small_mesh, dev)
     captured, launches, errs = phase("full", phase_full, FULL_SCALE, dev)
     kernels_line = {"kernels": phase("timing", phase_timing, captured,
                                      launches, errs)}

@@ -6,8 +6,10 @@ fixed-width entries; the transport routes block (s, d) to shard ``d`` and,
 for the pull phase, routes per-slot replies back along the inverse path.
 With all S shards stacked on one device, a transport is a reshape
 (``dense``) or an indexed gather (``ragged``) of the ``[S, slots, ...]``
-buffers; both deliver the same entries. The static maps are host numpy,
-built exactly as the JAX package builds them.
+buffers; both deliver the same entries. The third transport, ``mesh``
+(:mod:`repro_torch.comm.mesh_exchange`), routes ragged's maps through
+real collectives, one shard per ``torch.distributed`` rank. The static
+maps are host numpy, built exactly as the JAX package builds them.
 """
 from __future__ import annotations
 
@@ -173,10 +175,16 @@ class RaggedExchange(Exchange):
         return self._route(tree, "_back_src", "_back_slot")
 
 
-def make_exchange(transport: str, S: int, cap: int, caps=None) -> Exchange:
+def make_exchange(transport: str, S: int, cap: int, caps=None, mesh=None,
+                  lanes: tuple[str, str] = ("scatter", "gather")) -> Exchange:
     """Build the transport for one exchange lane: ``dense`` uses the
     uniform ``cap``; ``ragged`` requires the planner's per-(src, dest)
-    ``caps``."""
+    ``caps``; ``mesh`` is the real-collective transport
+    (:class:`~repro_torch.comm.mesh_exchange.MeshExchange`): ragged's
+    static maps (a uniform ``cap`` grid when no per-pair caps are
+    planned), routed by collectives over ``mesh`` (a
+    ``launch.mesh.ShardMesh``); ``lanes`` names its scatter and gather in
+    the mesh's byte counters."""
     if transport == "dense":
         return DenseExchange(S, cap)
     if transport == "ragged":
@@ -186,7 +194,9 @@ def make_exchange(transport: str, S: int, cap: int, caps=None) -> Exchange:
                 "the plan with pushpull.plan_engine(..., transport='ragged')")
         return RaggedExchange(np.asarray(caps, np.int64).reshape(S, S))
     if transport == "mesh":
-        raise NotImplementedError(
-            "transport='mesh' (one shard per device over torch.distributed) "
-            "is not ported yet; see ROADMAP.md, Queue 1 item 8")
+        from repro_torch.comm.mesh_exchange import MeshExchange
+        if caps is None:
+            caps = np.full((S, S), max(1, int(cap)), np.int64)
+        return MeshExchange(np.asarray(caps, np.int64).reshape(S, S),
+                            mesh=mesh, lanes=lanes)
     raise ValueError(f"transport must be one of {TRANSPORTS}, got {transport!r}")

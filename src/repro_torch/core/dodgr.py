@@ -648,3 +648,21 @@ def dodgr_from_arrays(arrays: dict, meta: dict, device) -> ShardedDODGr:
         kw[f] = torch.as_tensor(a, device=dev)
     kw.update({f: meta[f] for f in META_FIELDS})
     return ShardedDODGr(**kw)
+
+
+def shard_slice(gr: ShardedDODGr, rank: int, device=None) -> ShardedDODGr:
+    """Rank ``rank``'s part of a stacked :class:`ShardedDODGr`, for the mesh
+    lowering (one shard per rank): row ``rank`` of every per-shard field,
+    keeping a leading axis of 1; the replicated hub tables whole; the
+    static fields as they are (``S`` stays the true shard count). Only
+    the slice goes to ``device`` (``None``: where ``gr`` lies); the
+    per-shard rows are copies, so the slice holds none of the stack."""
+    if not 0 <= rank < gr.S:
+        raise ValueError(f"rank {rank} is not a shard of S={gr.S}")
+    dev = gr.device if device is None else resolve_device(device)
+    kw = {f: getattr(gr, f) for f in META_FIELDS}
+    for f in PER_SHARD_FIELDS:
+        kw[f] = getattr(gr, f)[rank:rank + 1].to(dev, copy=True)
+    for f in REPLICATED_FIELDS:
+        kw[f] = getattr(gr, f).to(dev)
+    return ShardedDODGr(**kw)

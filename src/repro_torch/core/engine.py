@@ -48,8 +48,11 @@ Stats are float32 sums, as in the JAX package: each superstep adds one
 exact integer per stat, in the same order, so the values agree bit for bit
 (and round the same way once a total passes 2²⁴).
 
-Not ported yet (raises ``NotImplementedError`` naming ROADMAP.md): the
-mesh transport.
+Mesh lowering (``make_survey_fn(..., mesh=)``): one shard per
+``torch.distributed`` rank, the same superstep body on the rank's slice
+(leading axis 1, while routing and local ids keep the true S), every
+exchange a real collective (:mod:`repro_torch.comm.mesh_exchange`), the
+states all-gathered and merged in rank order.
 """
 from __future__ import annotations
 
@@ -60,7 +63,7 @@ import numpy as np
 import torch
 
 from repro_torch.comm.exchange import Exchange, make_exchange
-from repro_torch.core.dodgr import ShardedDODGr, meta_widths
+from repro_torch.core.dodgr import ShardedDODGr, meta_widths, shard_slice
 from repro_torch.core.surveys import (MetaSpec, Survey, TriangleBatch,
                                       expand_lanes, narrow_lanes,
                                       project_lanes, tree_map)
@@ -70,8 +73,6 @@ from repro_torch.kernels.wedge_intersect import ops as wi_ops
 
 BIG_I32 = 2**30
 U32_ONES = -1   # 0xFFFFFFFF as int32 bits: the reply-row hash sentinel
-
-_ROADMAP = "see ROADMAP.md"
 
 
 # ---------------------------------------------------------------------------
@@ -103,7 +104,7 @@ class EngineConfig:
     delta: bool = False           # epoch-incremental mode
     epoch: int = 0
     orient: str = "degree"
-    transport: str = "dense"      # "dense" | "ragged" ("mesh" not ported yet)
+    transport: str = "dense"      # "dense" | "ragged" | "mesh"
     push_caps: tuple | None = None  # ragged: S×S wedge slots per (src, dest)
     pull_caps: tuple | None = None  # ragged: S×S pulled-group slots per (src, dest)
     pull_row_cap: int = 0         # reply-row padding (0 = d_plus_max)
@@ -163,6 +164,7 @@ def _stream_setup(gr: ShardedDODGr, weight_mask=None) -> dict:
       valid      edge-slot validity
     """
     S, E, n_loc = gr.S, gr.e_cap, gr.n_loc
+    S_ax = gr.row_ptr.shape[0]
     dev = gr.device
     e = torch.arange(E, dtype=torch.int32, device=dev)[None, :]
     valid = e < gr.row_ptr[:, -1:]
@@ -176,7 +178,7 @@ def _stream_setup(gr: ShardedDODGr, weight_mask=None) -> dict:
         w = w * torch.gather(weight_mask, 1, perm).to(torch.int32)
     cum = torch.cumsum(w, 1, dtype=torch.int32)
     sorted_dest = torch.gather(dest, 1, perm)
-    dest_start = torch.searchsorted(sorted_dest, _arange_rows(S, S + 1, dev),
+    dest_start = torch.searchsorted(sorted_dest, _arange_rows(S_ax, S + 1, dev),
                                     out_int32=True)
     base = _lookup(cum, dest_start)             # [S, S+1]; base[:, S] == total
     stream_len = base[:, 1:] - base[:, :-1]
@@ -291,7 +293,8 @@ def _hub_superstep(gr: ShardedDODGr, hst: dict, t: int, cfg: EngineConfig,
             "search addresses it as one row with int32 positions, at most "
             "2**31 - 1 keys; raise hub_theta for fewer hubs")
     cap = cfg.hub_wedge_cap
-    rank = t * cap + _arange_rows(S, cap, gr.device)
+    S_ax = gr.row_ptr.shape[0]
+    rank = t * cap + _arange_rows(S_ax, cap, gr.device)
     ok = rank < hst["total"][:, None]
     idx = torch.searchsorted(hst["cum"], rank, right=True, out_int32=True)
     e = idx.clamp(0, E - 1)
@@ -310,7 +313,7 @@ def _hub_superstep(gr: ShardedDODGr, hst: dict, t: int, cfg: EngineConfig,
         lo.reshape(1, -1), hi.reshape(1, -1),
         torch.gather(gr.nbr_d, 1, r_pos).reshape(1, -1),
         torch.gather(gr.nbr_h, 1, r_pos).reshape(1, -1),
-        r.reshape(1, -1)).view(S, cap)
+        r.reshape(1, -1)).view(S_ax, cap)
     pos_c = pos.clamp(0, Hc * Lh - 1).long()
     found = ok & (pos < hi) & (h_nbr[0][pos_c] == r)
     if cfg.delta:
@@ -361,6 +364,7 @@ def _pull_setup(gr: ShardedDODGr, st: dict, cfg: EngineConfig, widths,
       dest_start2 [S]
     """
     S, E = gr.S, gr.e_cap
+    S_ax = gr.row_ptr.shape[0]
     dev = gr.device
     w_push, w_row, w_hdr, w_req = widths
     valid = st["valid"]
@@ -370,18 +374,18 @@ def _pull_setup(gr: ShardedDODGr, st: dict, cfg: EngineConfig, widths,
     sfx = torch.gather(st["suffix"], 1, ordq)
     vq = torch.gather(valid, 1, ordq)
     vq_pull = vq if hub_mask is None else vq & ~torch.gather(hub_mask, 1, ordq)
-    ones = torch.ones((S, 1), dtype=torch.bool, device=dev)
+    ones = torch.ones((S_ax, 1), dtype=torch.bool, device=dev)
     first = torch.cat([ones, qs[:, 1:] != qs[:, :-1]], 1) & vq
     gid = torch.cumsum(first.to(torch.int32), 1, dtype=torch.int32) - 1
     gid = torch.where(vq, gid, E - 1).long()
-    vol = torch.zeros((S, E), dtype=torch.int32, device=dev).scatter_add_(1, gid, sfx)
+    vol = torch.zeros((S_ax, E), dtype=torch.int32, device=dev).scatter_add_(1, gid, sfx)
     vol_e = torch.gather(vol, 1, gid)
     dq = torch.gather(gr.nbr_dplus, 1, ordq)
     if cfg.cost_model == "entries":
         pull_s = vq_pull & (dq < vol_e)
     else:
         pull_s = vq_pull & (dq * w_row + w_hdr + w_req < vol_e * w_push)
-    pull = torch.zeros((S, E), dtype=torch.bool, device=dev).scatter_(1, ordq, pull_s)
+    pull = torch.zeros((S_ax, E), dtype=torch.bool, device=dev).scatter_(1, ordq, pull_s)
 
     # (dest, ~pull, q, pos) order: stable sort of the q-sorted order by
     # the composite bucket key
@@ -396,7 +400,7 @@ def _pull_setup(gr: ShardedDODGr, st: dict, cfg: EngineConfig, widths,
     first2 = torch.cat([ones, qs2[:, 1:] != qs2[:, :-1]], 1) & v2
     cum_incl = torch.cumsum((first2 & pull2).to(torch.int32), 1, dtype=torch.int32)
     qrank2 = cum_incl - 1
-    ds = torch.searchsorted(dest2, _arange_rows(S, S + 1, dev), out_int32=True)
+    ds = torch.searchsorted(dest2, _arange_rows(S_ax, S + 1, dev), out_int32=True)
     qbase = _lookup(cum_incl, ds[:, :-1])
     qcount = _lookup(cum_incl, ds[:, 1:]) - qbase
     pcum = torch.cumsum(pull2.to(torch.int32), 1, dtype=torch.int32)
@@ -644,11 +648,15 @@ class _F32Stats:
 def _survey_body(gr: ShardedDODGr, survey: Survey, cfg: EngineConfig,
                  spec: MetaSpec, push_exch: Exchange,
                  pull_exch: Exchange | None):
-    """The superstep pipeline on the stacked layout. Returns the per-shard
-    states (a list, one per shard) and the stats."""
-    S = gr.S
+    """The superstep pipeline, shared by both lowerings: on the stacked
+    layout ``gr`` carries all S shards ([S, ...] tensors, host-modelled
+    transports); on a mesh rank it is the rank's shard ([1, ...] tensors,
+    a :class:`~repro_torch.comm.mesh_exchange.LocalMeshView` per lane).
+    Returns the per-shard states (a list, one per leading row) and the
+    stats of those rows."""
+    S_ax = gr.row_ptr.shape[0]    # leading axis: S stacked, 1 on a rank
     dev = gr.device
-    states = [survey.init(dev) for _ in range(S)]
+    states = [survey.init(dev) for _ in range(S_ax)]
 
     mw = cfg.meta_widths
     if mw is None:
@@ -702,7 +710,7 @@ def _survey_body(gr: ShardedDODGr, survey: Survey, cfg: EngineConfig,
         qx = push_exch.scatter(qr)
         qx["ok"] = push_exch.apply_recv_ok(qx["ok"])
         tri = _answer_push_queries(gr, qx, cfg, spec)
-        for s in range(S):
+        for s in range(S_ax):
             states[s] = survey.update(states[s], tri.shard(s))
         stats.add("wedges_pushed", n_gen)
         stats.add("tris_push", tri.valid.sum())
@@ -710,7 +718,7 @@ def _survey_body(gr: ShardedDODGr, survey: Survey, cfg: EngineConfig,
 
     for t in range(cfg.n_hub_steps if hub_on else 0):
         tri, n_w = _hub_superstep(gr, hst, t, cfg, spec)
-        for s in range(S):
+        for s in range(S_ax):
             states[s] = survey.update(states[s], tri.shard(s))
         stats.add("wedges_hub", n_w)
         stats.add("tris_hub", tri.valid.sum())
@@ -723,7 +731,7 @@ def _survey_body(gr: ShardedDODGr, survey: Survey, cfg: EngineConfig,
         for t in range(cfg.n_pull_steps):
             rep, n_req = _pull_wire(gr, ps, t, cfg, spec, pull_exch)
             checked = tris = overflow = 0
-            for s in range(S):
+            for s in range(S_ax):
                 tri, c_s, o_s = _pull_compute(gr, ps, t, cfg, spec,
                                               pull_exch, rep, s)
                 states[s] = survey.update(states[s], tri)
@@ -747,24 +755,109 @@ def stack_states(states: list):
     return tree_map(lambda *xs: torch.stack(xs), *states)
 
 
+# per-step wire-words stats: every rank accumulates the same value, so the
+# mesh lowering keeps one rank's copy instead of summing over ranks
+_WIRE_STAT_KEYS = ("wire_push_words", "wire_req_words", "wire_reply_words")
+
+
+def _gather_states(mesh, state) -> list:
+    """Every rank's survey state, in rank order, on this rank's device:
+    one all-gather of the state's bytes (the states have one shape on
+    every rank)."""
+    leaves = []
+    tree_map(lambda x: leaves.append(x.contiguous()), state)
+    buf = torch.cat([x.reshape(-1).view(torch.uint8) for x in leaves])
+    out = []
+    for b in mesh.all_gather(buf):
+        parts, off = [], 0
+        for x in leaves:
+            n = x.numel() * x.element_size()
+            parts.append(b[off:off + n].clone().view(x.dtype).reshape(x.shape))
+            off += n
+        it = iter(parts)
+        out.append(tree_map(lambda _: next(it), state))
+    return out
+
+
+def _sum_rank_stats(mesh, stats: dict) -> dict:
+    """The mesh lowering's stats, as the JAX package forms them: each
+    rank's float32 sums, added in float32 in rank order; the wire-words
+    stats from one rank."""
+    keys = list(stats)
+    vals = torch.tensor([stats[k] for k in keys], dtype=torch.float32,
+                        device=mesh.device)
+    per_rank = [v.cpu().numpy() for v in mesh.all_gather(vals)]
+    out = {}
+    for i, k in enumerate(keys):
+        if k in _WIRE_STAT_KEYS:
+            out[k] = float(per_rank[0][i])
+            continue
+        acc = np.float32(0.0)
+        for v in per_rank:
+            acc = np.float32(acc + v[i])
+        out[k] = float(acc)
+    return out
+
+
 def make_survey_fn(survey: Survey, cfg: EngineConfig, mesh=None):
-    """Build the survey function ``gr -> (merged_state, stats)`` on the
-    stacked layout (``mesh=None``). ``stats`` are Python floats holding
-    the float32 sums."""
-    if mesh is not None or cfg.transport == "mesh":
-        raise NotImplementedError(
-            "the mesh lowering (one shard per device over torch.distributed) "
-            f"is not ported yet ({_ROADMAP}, Queue 1 item 8); plan with "
-            "transport='dense' or 'ragged' and pass mesh=None")
+    """Build the survey function ``gr -> (merged_state, stats)``. ``stats``
+    are Python floats holding the float32 sums.
+
+    ``mesh=None`` is the stacked lowering: all S shards on one device,
+    transports modelled by reshapes and gathers. A ``launch.mesh.ShardMesh``
+    (``make_shard_mesh(S)``, inside each of S ``torch.distributed``
+    ranks) runs the same superstep body on the rank's shard, every
+    ``scatter`` / ``gather`` a real collective
+    (:mod:`repro_torch.comm.mesh_exchange`), hub tables replicated. The
+    function takes the whole stacked graph (the rank takes its slice) or
+    the rank's slice (``dodgr.shard_slice``). Each rank's state is
+    all-gathered and merged in rank order, so every rank returns the
+    stacked lowering's merged state bit for bit; the stats follow the
+    JAX package's mesh rule (per-rank float32 sums added in rank order),
+    equal to the stacked stats while every sum stays below 2²⁴.
+    """
+    if mesh is None:
+        if cfg.transport == "mesh":
+            raise ValueError(
+                "a transport='mesh' plan runs real collectives — pass "
+                "mesh=launch.make_shard_mesh(S) to make_survey_fn / the "
+                "survey entry points, or re-plan with transport='dense' or "
+                "'ragged' for the stacked path")
+
+        def run(gr: ShardedDODGr):
+            spec = resolve_survey_spec(survey, gr, cfg)
+            push_exch = _push_exchange(cfg, gr.S)
+            pull_exch = (_pull_exchange(cfg, gr.S)
+                         if cfg.mode == "pushpull" else None)
+            states, stats = _survey_body(gr, survey, cfg, spec, push_exch,
+                                         pull_exch)
+            return survey.merge(stack_states(states)), stats
+
+        return run
 
     def run(gr: ShardedDODGr):
+        if mesh.size != gr.S:
+            raise ValueError(
+                f"mesh has {mesh.size} rank(s) but the graph has S={gr.S} "
+                "shards; build it with launch.make_shard_mesh(S)")
+        rows = gr.row_ptr.shape[0]
+        if rows == gr.S:
+            gr = shard_slice(gr, mesh.rank, device=mesh.device)
+        elif rows != 1:
+            raise ValueError(f"a graph of {rows} shard rows is neither the "
+                             f"whole stack of S={gr.S} nor one rank's slice")
         spec = resolve_survey_spec(survey, gr, cfg)
-        push_exch = _push_exchange(cfg, gr.S)
-        pull_exch = (_pull_exchange(cfg, gr.S)
+        push_exch = make_exchange("mesh", gr.S, cfg.push_cap, cfg.push_caps,
+                                  mesh=mesh, lanes=("push", "push_back"))
+        pull_exch = (make_exchange("mesh", gr.S, cfg.pull_q_cap,
+                                   cfg.pull_caps, mesh=mesh,
+                                   lanes=("req", "reply"))
                      if cfg.mode == "pushpull" else None)
-        states, stats = _survey_body(gr, survey, cfg, spec, push_exch,
-                                     pull_exch)
-        return survey.merge(stack_states(states)), stats
+        states, stats = _survey_body(
+            gr, survey, cfg, spec, push_exch.local_view(mesh.rank),
+            pull_exch.local_view(mesh.rank) if pull_exch else None)
+        merged = survey.merge(stack_states(_gather_states(mesh, states[0])))
+        return merged, _sum_rank_stats(mesh, stats)
 
     return run
 

@@ -9,8 +9,8 @@ on the device (``engine._pull_setup``) so the two always agree. The same
 pass yields byte-exact push-only vs push-pull volumes (paper Table 4).
 
 This is host numpy, ported line for line from the JAX package's planner so
-that configurations and reports compare field by field. Not ported yet:
-the mesh transport's round schedule.
+that configurations and reports compare field by field, the mesh
+transport's round schedule (``sched_*`` / ``naive_*``) included.
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ import numpy as np
 
 from repro_torch.analysis.contracts import classify_determinism
 from repro_torch.comm.exchange import TRANSPORTS
+from repro_torch.comm.round_schedule import best_schedule, rotation_schedule
 from repro_torch.core.dodgr import (delta_gen_mask, hub_widths, meta_widths,
                                     orient_edges, sparsify_edges)
 from repro_torch.core.engine import EngineConfig
@@ -464,10 +465,6 @@ def plan_engine(
     if transport not in TRANSPORTS:
         raise ValueError(f"transport must be one of {TRANSPORTS}, "
                          f"got {transport!r}")
-    if transport == "mesh":
-        raise NotImplementedError(
-            "transport='mesh' (and its round schedule) is not ported yet; "
-            "see ROADMAP.md, Queue 1 item 8")
     if cap_policy not in ("exact", "bucket"):
         raise ValueError(f"cap_policy must be 'exact' or 'bucket', "
                          f"got {cap_policy!r}")
@@ -769,6 +766,17 @@ def plan_engine(
                  naive_push_rounds=0, naive_push_slots=0,
                  sched_req_rounds=0, sched_req_slots=0,
                  naive_req_rounds=0, naive_req_slots=0)
+    if transport == "mesh":
+        for lane, caps_l in (("push", push_caps), ("req", pull_caps)):
+            if caps_l is None or (lane == "req" and not n_pull_steps):
+                continue
+            caps_a = np.asarray(caps_l, np.int64)
+            best = best_schedule(caps_a)
+            naive = rotation_schedule(caps_a)
+            sched[f"sched_{lane}_rounds"] = best.n_rounds
+            sched[f"sched_{lane}_slots"] = best.wire_slots
+            sched[f"naive_{lane}_rounds"] = naive.n_rounds
+            sched[f"naive_{lane}_slots"] = naive.wire_slots
     report = VolumeReport(
         S=S,
         wedges_total=wedges_total,

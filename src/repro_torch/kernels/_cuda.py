@@ -4,13 +4,15 @@ Each source compiles with ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, loaded with ``ctypes``. Libraries go into
 ``build/repro_torch/<hash of sources and flags>/`` at the root of the
 checkout (listed in ``.gitignore``), at first use; all missing libraries
-build at once, one ``nvcc`` process each, started together. Nothing here
-runs at import time, so the CPU tests import every module without a
-toolkit.
+build at once, one ``nvcc`` process each, started together, under a file
+lock, so that processes that start at once (the ranks of a mesh) build
+each library once. Nothing here runs at import time, so the CPU tests
+import every module without a toolkit.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -62,9 +64,25 @@ def build_all() -> dict[str, float]:
     """Compile every missing library in parallel; returns the seconds each
     new build took (empty when all were built already). Raises with the
     compiler's output when one fails; ``ptxas`` reports (registers, shared
-    memory, spills) are kept in ``<name>.log`` beside each library."""
+    memory, spills) are kept in ``<name>.log`` beside each library.
+
+    The build holds an exclusive lock on ``<build dir>.lock``: processes
+    that start together (a mesh's ranks) build each library once, and a
+    process that finds the lock held waits, then finds the libraries
+    built."""
     out = build_dir()
+    if all((out / f"lib{n}.so").exists() for n in SOURCES):
+        return {}
     out.mkdir(parents=True, exist_ok=True)
+    with open(out.parent / f"{out.name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return _build_missing(out)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _build_missing(out: Path) -> dict[str, float]:
     procs = {}
     t0 = time.perf_counter()
     for name in SOURCES:

@@ -117,8 +117,9 @@ class SurveyService:
 
     ``device=None`` is the card, and raises without one (as
     :func:`~repro_torch.utils.resolve_device`); pass ``device="cpu"`` for
-    the plain path. ``mesh`` is kept for parity: the mesh transport is not
-    ported and a mesh raises. The service fixes ``orient="stable"``.
+    the plain path. ``mesh`` is kept for parity: a service over the mesh
+    transport (one shard per ``torch.distributed`` rank) is not ported
+    and a mesh raises. The service fixes ``orient="stable"``.
     """
 
     def __init__(self, graph: HostGraph, S: int, *,
@@ -141,6 +142,11 @@ class SurveyService:
                  preload_plans: Sequence[CacheEntry] | None = None,
                  compile_cache_dir=None,
                  device=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "SurveyService(mesh=) — a service whose surveys run one shard "
+                "per torch.distributed rank — is not ported yet; see "
+                "ROADMAP.md, Queue 1 item 8")
         self.device = resolve_device(device)
         if sample_p < 1.0 and resident:
             raise ValueError("resident surveys ride the delta engine, which "

@@ -1,7 +1,8 @@
 """The port's entry points vs the JAX package's: the reference run with
 its Pallas kernels in interpret mode, the reference's own shards and plan
-carried in through interop, DOULION sampling, the overflow guard, and the
-paths not ported yet (the mesh lowering). Exact equality throughout."""
+carried in through interop, DOULION sampling, the overflow guard, the
+mesh plan's schedule and guards, and the path not ported yet (a service
+over the mesh). Exact equality throughout."""
 import dataclasses
 
 import numpy as np
@@ -21,6 +22,8 @@ from repro_torch.core import pushpull as pt_pp
 from repro_torch.core import surveys as pt_sv
 from repro_torch.core.ref import count_triangles_ref
 from repro_torch.graphs import generators as pt_gen
+from repro_torch.launch.mesh import ShardMesh
+from repro_torch.serve import SurveyService
 from test_torch_engine import Runs, assert_run_equal, plan, ref_run, surveys
 
 # one intra-op thread: the suite runs in parallel workers, and torch's
@@ -105,8 +108,11 @@ def test_overflow_flags_inexact_like_reference():
 
 
 def test_unported_paths_raise_and_name_the_roadmap():
-    """The mesh lowering still raises; the hub lane and delta epochs,
-    which raised here until they were ported, now run."""
+    """The hub lane, delta epochs and the mesh transport, which raised here
+    until they were ported, now run or plan: a mesh plan stamps the
+    reference's round schedule and, off a mesh, raises the reference's
+    guard; a mesh whose size is not S raises. The service over a mesh is
+    not ported and still names the roadmap."""
     g = pt_gen.rmat(7, 8, seed=1).with_degree_meta()
     tc = pt_sv.TriangleCount()
     gr_hub, _ = pt_dodgr.shard_dodgr(g, 2, hub_theta=10, device="cpu")
@@ -115,10 +121,25 @@ def test_unported_paths_raise_and_name_the_roadmap():
     assert res == ref_count(ref_gen.rmat(7, 8, seed=1)) and st["tris_hub"] > 0
     gr, _ = pt_dodgr.shard_dodgr(g, 2, device="cpu")
     cfg, _ = pt_pp.plan_engine(g, 2, tc)
+    g_ref = ref_gen.rmat(7, 8, seed=1).with_degree_meta()
+    cfg_m, rep_m = pt_pp.plan_engine(g, 2, tc, transport="mesh", push_cap=64,
+                                     pull_q_cap=4)
+    rc_m, rr_m = ref_pp.plan_engine(g_ref, 2, ref_sv.TriangleCount(),
+                                    transport="mesh", push_cap=64, pull_q_cap=4)
+    assert dataclasses.asdict(rep_m) == dataclasses.asdict(rr_m)
+    assert dataclasses.asdict(cfg_m) == dataclasses.asdict(rc_m)
+    assert rep_m.sched_push_rounds > 0 and rep_m.sched_req_rounds > 0
+    with pytest.raises(ValueError, match="transport='mesh'") as pt_err:
+        pt_engine.survey_push_pull(gr, tc, cfg_m)
+    gr_ref, _ = ref_dodgr.shard_dodgr(g_ref, 2)
+    with pytest.raises(ValueError) as ref_err:
+        ref_engine.survey_push_pull(gr_ref, ref_sv.TriangleCount(), rc_m)
+    assert str(pt_err.value) == str(ref_err.value)
+    four = ShardMesh(rank=0, size=4, backend="gloo", device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="S=2 shards"):
+        pt_engine.survey_push_pull(gr, tc, cfg_m, mesh=four)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pt_engine.survey_push_pull(gr, tc, cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pt_pp.plan_engine(g, 2, tc, transport="mesh")
+        SurveyService(g, 2, mesh=four, device="cpu")
     dg = g.append_edges([0], [1])
     cfg_d, _ = pt_pp.plan_delta(dg, 2, tc)
     gr_d, _ = pt_dodgr.shard_delta(dg, 2, device="cpu")
