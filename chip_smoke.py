@@ -8,7 +8,15 @@ Phases (every failure ends the run with a non-zero exit):
 1. ``build``   — print torch/CUDA versions and the card's name and power
    limit; build the seven CUDA kernels (five sources, one ``nvcc`` each,
    all started together) from ``src/repro_torch/csrc``.
-2. ``kernels`` — each kernel equals its plain PyTorch version on the card,
+2. ``analysis`` — the port's static verifier in process
+   (``repro_torch.analysis.__main__.main([])``, ``python -m
+   repro_torch.analysis``): the fold contracts and determinism verdicts
+   of the 9 built-in surveys, the JAX package's plan matrix (each survey ×
+   {dense, ragged, ragged+hub, mesh, dense+bucket, ragged+hub+bucket} ×
+   {pushpull, push}, and delta epochs × {exact, bucket}) audited at S=4,
+   and the lint of ``src/repro_torch``; each pass's line and the phase's
+   wall. Any violation fails the run.
+3. ``kernels`` — each kernel equals its plain PyTorch version on the card,
    on random inputs and edge cases (hashes ≥ 2³¹, empty and full rows,
    slots -1 and ≥ cap, contested slots, batches with no valid entry or
    that fill no tile, pulled rows narrower than L). wedge_intersect also
@@ -37,7 +45,7 @@ Phases (every failure ends the run with a non-zero exit):
    ties broken by id, hashes ≥ 2³¹, queries below and above every key of
    their row) and on the hub lane's operands (stable-key rows of 1 to
    25,374 keys flattened to one key row).
-3. ``small``   — karate, clique(8) and rmat(9, 16) with seeded metadata and
+4. ``small``   — karate, clique(8) and rmat(9, 16) with seeded metadata and
    temporal_social(1500, 30000, seed=1), with S ∈ {1, 4}, push and
    push-pull, dense and ragged: a bundle of all eight built-in surveys
    with an Enumerate buffer small enough to wrap, push-pull with both
@@ -70,10 +78,11 @@ Phases (every failure ends the run with a non-zero exit):
    one split-lane run; a forced-θ hub cell; and a K = 2 delta stream of
    tests/test_delta.py's graph. Every rank's state, stats and result
    equal the card's stacked run and the CPU's; the bytes handed to the
-   collectives equal the plan's; every kernel launched in the ranks. Over
-   nccl too, one rank per card, where there are four cards (otherwise one
-   line says it was not run).
-4. ``full``    — Graph500 R-MAT (a=0.57, b=0.19, c=0.19), scale 18, edge
+   collectives, per lane and rank, reconcile with the plan's byte model
+   (``repro_torch.roofline.reconcile_collectives``); every kernel
+   launched in the ranks. Over nccl too, one rank per card, where there
+   are four cards (otherwise one line says it was not run).
+5. ``full``    — Graph500 R-MAT (a=0.57, b=0.19, c=0.19), scale 18, edge
    factor 16, seed 0; S=8 logical shards on the card, dense transport,
    ``plan_engine(..., push_cap=4096, pull_q_cap=16)``, through the user
    entry points (``shard_dodgr`` → ``plan_engine`` → ``survey_push_only``
@@ -135,25 +144,34 @@ Phases (every failure ends the run with a non-zero exit):
       and DegreeTriples push-pull on path a's dense plan relabelled mesh
       (uniform caps, one ``all_to_all_single``), each rank's result equal
       to path a's bit for bit, the stats within their float32 rounding
-      of the plan, the bytes handed to the collectives per lane equal to
-      the plan's. Spawn and set-up seconds, each survey's wall, the
-      largest rank's peak memory, the seconds in the collectives and in
-      the staging copies, and the launches summed over the ranks (each
-      rank's counts set to 0 just before each survey and read just
-      after). Over nccl too, one rank per card, where there are eight
+      of the plan, the bytes handed to the collectives reconciled per
+      lane with the plan's byte model (``reconcile_collectives``: each
+      lane == the plan's sent bytes, no rank over the schedule's
+      per-device bytes, the padding per lane printed). Spawn and set-up
+      seconds, each survey's wall, the largest rank's peak memory, the
+      seconds in the collectives and in the staging copies, and the
+      launches summed over the ranks (each rank's counts set to 0 just
+      before each survey and read just after). Over nccl too, one rank per card, where there are eight
       cards; otherwise one line says it was not run and how many cards
       there are.
 
-   Every run is exact and every kernel of a path launched on it. A
-   capture run (DegreeTriples and Enumerate bundled, on path a's graph)
-   and path c keep one superstep's operands of each kernel, on which each
+   Every run is exact and every kernel of a path launched on it. Every
+   plan a path runs is audited by ``repro_torch.analysis.check_plan``
+   (routing maps injective, every fed slot received, a bucketed plan the
+   exact plan rounded up, the ``VolumeReport`` reconciled word for word):
+   a's four, b's bundle, c's split lane, d's two hub plans, e's two
+   ``plan_delta`` epochs, each plan in f's service plan cache, g's mesh
+   plan, and g's relabelled plan as the dense plan it is, with the mesh
+   exchanges its caps build; each audit's seconds on a line of its own,
+   and any violation fails the run. A capture run (DegreeTriples and
+   Enumerate bundled, on path a's graph) and path c keep one superstep's operands of each kernel, on which each
    kernel equals its plain version; on the counting-set operands
    ``hist_add`` and ``hist_max`` equal their plain versions and together
    equal ``fold_count_max``. On path a, fold_count_max's launches are
    counted by batch size in power-of-two bins, and the first call in the
    bin with the most launches is kept (on the host) as its typical fold.
-5. Timing of each kernel at those captured shapes (median of CUDA-event
-   times), its plain version's, its bound, a library call's where one
+6. ``timing`` — the time of each kernel at those captured shapes
+   (median of CUDA-event times), its plain version's, its bound, a library call's where one
    computes the same function, and one ``kernels`` JSON line; hist_add and
    hist_max have a row for each caller's modal fold (the first call in
    its bin with the most launches) and, where at least four times larger,
@@ -199,10 +217,6 @@ FULL_TRIANGLES = 82_824_164    # its triangle count (the cell's known count)
 # push-only supersteps are host-bound
 CUT_SCALES = 2
 PROFILE_PULL_STEPS = 16        # pull supersteps in a profiled window
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
-# The data sheet gives no int32 rate; its float32 rate outside the tensor
-# cores (67 T/s) is at least the int32 one, so the bound stays a lower bound
-PEAK_OPS_PER_S = 67e12
 INT32_MIN = -(2**31)
 
 # Zachary's karate club (the 78 edges networkx ships); the card's machine
@@ -344,7 +358,58 @@ def phase_build(torch, report):
 
 
 # ---------------------------------------------------------------------------
-# phase 2: each kernel against its plain version on random inputs
+# phase 2: the static verifier
+
+
+def phase_analysis(torch, report):
+    """``python -m repro_torch.analysis`` in process: its three passes
+    (fold contracts, the plan matrix, the lint) must find nothing."""
+    import io
+
+    from repro_torch.analysis.__main__ import main as analysis_main
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = analysis_main([])
+    wall = time.perf_counter() - t0
+    lines = out.getvalue().strip().splitlines()
+    report["analysis"] = dict(rc=rc, wall_s=wall, lines=lines)
+    for line in lines:
+        log(f"analysis: {line}")
+    log(f"analysis: {wall:.2f} s")
+    require(rc == 0, f"python -m repro_torch.analysis exited {rc}")
+
+
+def audit_plan(full, tag, cfg, rep):
+    """``check_plan`` on a plan a path runs, timed; any violation fails the
+    run. A dense plan relabelled mesh (its report is the dense plan's) is
+    audited as the dense plan it is, and the mesh exchanges its caps build
+    (push and pull lanes, with their round schedules) on their own."""
+    from repro_torch.analysis import (check_exchange, check_plan,
+                                      check_schedule, format_report)
+    from repro_torch.comm.exchange import make_exchange
+
+    t0 = time.perf_counter()
+    if cfg.transport == "mesh" and rep.transport != "mesh":
+        v = check_plan(dataclasses.replace(cfg, transport=rep.transport), rep)
+        lanes = [("push", cfg.push_cap, cfg.push_caps)]
+        if cfg.n_pull_steps:
+            lanes.append(("pull", cfg.pull_q_cap, cfg.pull_caps))
+        for lane, cap, caps in lanes:
+            x = make_exchange("mesh", rep.S, cap, caps)
+            v += check_exchange(x, lane) + check_schedule(x.schedule, x.caps,
+                                                          lane)
+    else:
+        v = check_plan(cfg, rep)
+    wall = time.perf_counter() - t0
+    full.setdefault("audits", {})[tag] = wall
+    log(f"audit {tag}: {len(v)} violation(s) in {wall:.3f} s")
+    require(not v, f"audit {tag}: {format_report(v)}")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: each kernel against its plain version on random inputs
 
 
 def _u32_bits(a):
@@ -771,7 +836,7 @@ def counting_total(res) -> int:
 
 
 # ---------------------------------------------------------------------------
-# phase 3: small paths, card == CPU port == oracle
+# phase 4: small paths, card == CPU port == oracle
 
 
 def _float_sweep(k_max: int) -> np.ndarray:
@@ -1171,7 +1236,7 @@ def phase_small_serve(torch, report, dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the full-size deployment through the user entry points
+# phase 5: the full-size deployment through the user entry points
 
 
 # ---------------------------------------------------------------------------
@@ -1186,45 +1251,25 @@ def mesh_workdir(name: str) -> Path:
     return ROOT / "build" / "mesh" / name
 
 
-def mesh_bytes_expected(cfg, rep, gr, S):
-    """Per lane of a mesh plan: (bytes handed to the collectives summed
-    over ranks, the most one rank may hand over). Uniform caps: the
-    all-to-all block, self chunk included, which is the VolumeReport's
-    wire bytes; scheduled rounds: each source's padded slice
-    (``sent_round_slots``), and per rank at most the schedule's padded
-    slots (the JAX package's per-device count)."""
-    from repro_torch.comm.mesh_exchange import MeshExchange
+def check_mesh_bytes(tag, outs, cfg, rep, S) -> dict:
+    """The bytes each rank handed to the collectives, per lane (the ranks'
+    outputs ``outs`` of one job), reconciled with the plan's byte model
+    (``reconcile_collectives``: each lane == the plan's sent bytes, no
+    rank over the schedule's per-device bytes, nothing on an unknown
+    lane); returns the reconciliation's lanes."""
+    from repro_torch.roofline import reconcile_collectives
 
-    w_push, w_row, w_hdr, w_req = cfg.meta_widths
-    Lr = cfg.pull_row_cap if cfg.pull_row_cap else gr.d_plus_max
-    lanes = {"push": (cfg.n_push_steps, cfg.push_cap, cfg.push_caps, w_push,
-                      rep.wire_push_bytes)}
-    if cfg.mode == "pushpull" and cfg.n_pull_steps:
-        for lane, w, vol in (("req", w_req, rep.wire_req_bytes),
-                             ("reply", w_hdr + Lr * w_row, rep.wire_reply_bytes)):
-            lanes[lane] = (cfg.n_pull_steps, cfg.pull_q_cap, cfg.pull_caps,
-                           w, vol)
-    out = {}
-    for lane, (steps, cap, caps, w, vol) in lanes.items():
-        mx = MeshExchange(np.full((S, S), cap) if caps is None
-                          else np.asarray(caps))
-        total = steps * mx.sent_round_slots() * w * 4
-        if mx.uniform:
-            require(total == vol, f"{lane}: uniform bytes {total} != plan {vol}")
-        out[lane] = (total, steps * mx.wire_round_slots() * w * 4, mx.uniform)
-    return out
-
-
-def check_mesh_bytes(tag, outs, expected):
-    """Bytes handed to the collectives, per lane, summed over the ranks'
-    outputs ``outs`` of one job, against ``mesh_bytes_expected``."""
-    for lane, (total, per_rank_max, uniform) in expected.items():
-        got = [o["bytes"].get(lane, 0) for o in outs]
-        require(sum(got) == total,
-                f"{tag}: {lane} bytes {sum(got)} != planned {total}")
-        require(max(got) <= per_rank_max,
-                f"{tag}: a rank handed {max(got)} {lane} bytes, more than "
-                f"the schedule's {per_rank_max}")
+    rec = reconcile_collectives([o["bytes"] for o in outs], cfg, S=S,
+                                volume=rep)
+    require(rec["ok"], f"{tag}: collective bytes do not reconcile with the "
+            f"plan: lanes {rec['lanes']}, unknown lanes {rec['extra_lanes']}")
+    lanes = {k: r for k, r in rec["lanes"].items() if r["sent"]}
+    log(f"{tag}: bytes " + "; ".join(
+        f"{k} {r['measured']} == sent {r['sent']} (per device <= "
+        f"{r['per_device']}, largest rank {r['rank_max']}, padding "
+        f"{r['padding']})" for k, r in lanes.items())
+        + f"; merge {rec['other_bytes']} (not reconciled)")
+    return lanes
 
 
 def mesh_summary(ranks, index) -> dict:
@@ -1258,8 +1303,8 @@ def phase_small_mesh(torch, report, dev):
     all_to_all_single); one split-lane run; a forced-θ hub cell; a K = 2
     delta stream. Each rank's result and stats equal the card's stacked
     run and the CPU's, bit for bit; the bytes handed to the collectives
-    equal the plan's. Over nccl too, one rank per card, where there are
-    four cards."""
+    reconcile with the plan (``check_mesh_bytes``). Over nccl too, one
+    rank per card, where there are four cards."""
     from repro_torch.core.dodgr import shard_delta, shard_dodgr
     from repro_torch.core.engine import (finalize_epochs, make_survey_fn,
                                          survey_delta)
@@ -1313,7 +1358,7 @@ def phase_small_mesh(torch, report, dev):
             require(same(card, cpu), f"mesh {key}: stacked card != CPU")
             require(card[2]["TriangleCount"] == t_ref,
                     f"mesh {key}: stacked count != oracle {t_ref}")
-            want[key] = (card, mesh_bytes_expected(mcfg, rep, shards[th][1], S))
+            want[key] = (card, (mcfg, rep))
             index[key] = len(jobs)
             jobs.append(dict(kind="survey", gr=shards[th][1], survey=survey,
                              cfg=mcfg, entry="fn"))
@@ -1351,7 +1396,7 @@ def phase_small_mesh(torch, report, dev):
                         timeout=600).start().wait()
         spawn_s = time.perf_counter() - t_spawn
         for key, i in index.items():
-            (w_state, w_stats, w_result), expected = want[key]
+            (w_state, w_stats, w_result), plan = want[key]
             outs = [r["outputs"][i] for r in ranks]
             for r, o in enumerate(outs):
                 tag = f"mesh {backend} {key} rank {r}"
@@ -1359,8 +1404,9 @@ def phase_small_mesh(torch, report, dev):
                 require(o["stats"] == w_stats, f"{tag}: stats != stacked")
                 require(same(o["result"], w_result),
                         f"{tag}: result != stacked")
-            if expected is not None:
-                check_mesh_bytes(f"mesh {backend} {key}", outs, expected)
+            if plan is not None:
+                check_mesh_bytes(f"mesh {backend} {' '.join(key)}", outs,
+                                 *plan, S)
         summary = mesh_summary(ranks, index)
         launches = {k: sum(s["launches"][k] for s in summary.values())
                     for k in summary[("delta",)]["launches"]}
@@ -1375,7 +1421,8 @@ def phase_small_mesh(torch, report, dev):
                  "collectives, " if cards else "on the CPU ("}[backend]
         log(f"small mesh: {len(jobs)} runs on {S} ranks over {backend} "
             f"{where}{staged:.2f} s staging over all ranks), each rank == "
-            f"card stacked == CPU, bytes == plan; spawn {spawn_s:.1f} s "
+            f"card stacked == CPU, bytes reconciled with the plan; spawn "
+            f"{spawn_s:.1f} s "
             f"(ranks ready after {max(r['ready_s'] for r in ranks):.1f} s); "
             f"launches in the ranks {launches}")
         return dict(runs=len(jobs), spawn_s=spawn_s,
@@ -1740,6 +1787,7 @@ def phase_full(torch, report, scale, dev):
             log(f"plan {sname} {mode}: {plan_s:.1f} s, "
                 f"push steps {cfg.n_push_steps}, pull steps {cfg.n_pull_steps}, "
                 f"pull_edge_cap {cfg.pull_edge_cap}, pull_row_cap {cfg.pull_row_cap}")
+            audit_plan(full, f"a {sname} {mode}", cfg, reports[(sname, mode)])
 
     # path a: the first slice's four runs, push-only on the cut graph
     results = {}
@@ -1799,7 +1847,8 @@ def phase_full(torch, report, scale, dev):
     sync(torch, dev)
     full["bundle_shard_s"] = time.perf_counter() - t0
     bundle = bundle_of_all(g_lab.n, enum_cap=2**20)
-    cfg_b, plan_s, _ = plan(g_lab, bundle, "pushpull")
+    cfg_b, plan_s, rep_b = plan(g_lab, bundle, "pushpull")
+    audit_plan(full, "b bundle pushpull", cfg_b, rep_b)
     full["bundle_plan"] = dict(
         plan_s=plan_s, n_push_steps=cfg_b.n_push_steps,
         n_pull_steps=cfg_b.n_pull_steps, pull_edge_cap=cfg_b.pull_edge_cap,
@@ -1849,6 +1898,8 @@ def phase_full(torch, report, scale, dev):
     # path c: the split pull kernel
     survey, cfg, _ = plans[("TriangleCount", "pushpull")]
     split = dataclasses.replace(cfg, pull_kernel="split")
+    audit_plan(full, "c TriangleCount pushpull split", split,
+               reports[("TriangleCount", "pushpull")])
     rec_is = Recorder(isx, "intersect", torch)
     t0 = time.perf_counter()
     (res_s, st_s), launches["split"] = run_path(
@@ -2008,6 +2059,7 @@ def paths_hub_delta(torch, dev, full, g, S, expect, dt_pushpull, launches,
                 and gr_h.n_hubs == rep.n_hubs > 0, f"{sname}: hub set != plan")
         require(cfg.n_hub_steps == -(-rep.hub_stream_max // cfg.hub_wedge_cap),
                 f"{sname}: hub steps != plan")
+        audit_plan(full, f"d {sname} pushpull hub", cfg, rep)
         hub_plans[sname] = (survey, cfg, rep, gr_h)
         hub[sname] = dict(
             plan_s=plan_s, hub_theta=cfg.hub_theta, n_hubs=rep.n_hubs,
@@ -2079,6 +2131,7 @@ def paths_hub_delta(torch, dev, full, g, S, expect, dt_pushpull, launches,
                                   push_cap=65536, hub_theta="auto",
                                   hub_wedge_cap=1 << 20)
             plan_s = time.perf_counter() - t0
+            audit_plan(full, f"e epoch {ep} push delta", cfg, rep)
             t0 = time.perf_counter()
             gr_e, _ = shard_delta(dg, S, hub_theta=cfg.hub_theta,
                                   hub_cache=cache, device=dev)
@@ -2197,6 +2250,9 @@ def path_served(torch, dev, full, g, S, expect, launches):
             warm = timed("warm", lambda: svc.query_coalesced(reqs))
             memo = {k: v - before[k] for k, v in read_launches().items()}
             plans = [svc.cache.peek(k) for k in svc.cache.keys()]
+            for i, e in enumerate(plans):
+                audit_plan(full, f"f service plan {i} ({e.key[:12]})",
+                           e.cfg, e.report)
             base_answers = svc.resident_answers()
             timed("ingest", lambda: svc.append_edges(
                 g.src[held], g.dst[held], emeta_i=g.emeta_i[held],
@@ -2268,7 +2324,8 @@ def path_mesh(torch, dev, full, g, gr, expect, plans, reports, results,
     push-pull on path a's dense plan relabelled mesh (uniform caps:
     all_to_all_single) equals path a's bit for bit. The stats within
     their float32 rounding of the plan; the bytes handed to the
-    collectives equal the plan's. Over nccl too where there is a card
+    collectives reconcile with the plan (``check_mesh_bytes``); both
+    plans audited (``audit_plan``). Over nccl too where there is a card
     per rank. Returns rows of rank 0's largest wedge_check and
     wedge_intersect launches (as ``lane_rows``)."""
     from repro_torch.core.pushpull import plan_engine
@@ -2286,6 +2343,9 @@ def path_mesh(torch, dev, full, g, gr, expect, plans, reports, results,
     mesh["plan_s"] = time.perf_counter() - t0
     cfg_dt = dataclasses.replace(cfg_dt, transport="mesh")
     rep_dt = reports[("DegreeTriples", "pushpull")]
+    audit_plan(full, "g TriangleCount pushpull mesh", cfg_tc, rep_tc)
+    audit_plan(full, "g DegreeTriples pushpull dense relabelled mesh",
+               cfg_dt, rep_dt)
     wd = mesh_workdir("full")
     t0 = time.perf_counter()
     save_slices(gr, wd / "slices")
@@ -2295,8 +2355,6 @@ def path_mesh(torch, dev, full, g, gr, expect, plans, reports, results,
                  entry="pushpull", capture=("wedge_check", "wedge_intersect")),
             dict(kind="survey", gr=src, survey=survey_dt, cfg=cfg_dt,
                  entry="pushpull")]
-    expected = [mesh_bytes_expected(cfg_tc, rep_tc, gr, S),
-                mesh_bytes_expected(cfg_dt, rep_dt, gr, S)]
     mesh["schedule"] = dict(
         push=(rep_tc.sched_push_rounds, rep_tc.sched_push_slots,
               rep_tc.naive_push_rounds, rep_tc.naive_push_slots),
@@ -2327,8 +2385,9 @@ def path_mesh(torch, dev, full, g, gr, expect, plans, reports, results,
                 tag = f"path g {backend} {name} rank {r}"
                 require(same(o["result"], want), f"{tag}: != path a's")
                 require(o["stats"]["exact"], f"{tag}: inexact")
-            check_mesh_bytes(f"path g {backend} {name}", outs, expected[i])
             cfg, rep = ((cfg_tc, rep_tc), (cfg_dt, rep_dt))[i]
+            summary[name]["bytes_reconciled"] = check_mesh_bytes(
+                f"path g {backend} {name}", outs, cfg, rep, S)
             st = outs[0]["stats"]
             adds_push = cfg.n_push_steps * S + S
             adds_pull = cfg.n_pull_steps * S + S
@@ -2359,7 +2418,7 @@ def path_mesh(torch, dev, full, g, gr, expect, plans, reports, results,
                 f"rank's, {s['resident'] / 2**30:.2f} resident); collectives "
                 f"{s['wire_s_max']:.2f} s, staging {s['stage_s_max']:.2f} s "
                 f"(the slowest rank; summed {s['wire_s_sum']:.2f} / "
-                f"{s['stage_s_sum']:.2f}); bytes {s['bytes']} == plan; "
+                f"{s['stage_s_sum']:.2f}); bytes {s['bytes']} reconciled; "
                 f"launches {s['launches']}")
         log(f"path g {backend}: {S} ranks ready {out['ready_s']:.1f} s after "
             f"the spawn, whole path {wall:.1f} s; launches over the ranks "
@@ -2433,7 +2492,7 @@ def profile_run(torch, label, fn, top=12) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: timing at the captured shapes
+# phase 6: timing at the captured shapes
 
 
 def time_ms(torch, fn, reps=20, warmup=3) -> float:
@@ -2606,14 +2665,17 @@ def _shape(a):
 def measure(torch, name, entry) -> dict:
     """Time a kernel, its plain version and its library call on captured
     operands, and compute its bound from them."""
+    from repro_torch.roofline import HW
+
     (args, kw), kern, plain = entry
     ms = time_ms(torch, lambda: kern(*args, **kw))
     plain_ms = time_ms(torch, lambda: plain(*args, **kw), reps=5, warmup=1)
     lib = library_call(torch, name, args)
     lib_ms = time_ms(torch, lib) if lib is not None else None
+    hw = HW()     # the bound's rates: device memory, int32 operations
     nbytes, nops = bound_work(torch, name, args, kw)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = nops / PEAK_OPS_PER_S * 1e3
+    bytes_ms = nbytes / hw.hbm_bw * 1e3
+    ops_ms = nops / hw.peak_int32_ops * 1e3
     row = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                library_ms=lib_ms, bytes=nbytes, operations=nops,
@@ -2732,6 +2794,7 @@ def main() -> int:
         return out
 
     phase("build", phase_build)
+    phase("analysis", phase_analysis)
     phase("kernels", phase_kernels, dev)
     phase("small", phase_small, dev)
     phase("small_hub", phase_small_hub, dev)

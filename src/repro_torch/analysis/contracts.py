@@ -1,12 +1,14 @@
-"""Fold-determinism verdict of a survey, found by tracing its folds.
+"""Fold contracts of a survey (pass 1 of ``repro_torch.analysis``): its
+determinism verdict and its fold algebra, found by running its folds.
 
 The JAX package traces a survey's ``update``, ``merge`` and
-``merge_epochs`` to jaxprs (``repro.analysis.contracts``) and flags the
-primitives that break the bitwise contracts: a float scatter-add (its
-reduction order over colliding indices is backend-defined), a host
-callback, RNG. The port runs the same three hooks once on small CPU
-tensors under a :class:`TorchDispatchMode` and reads the ATen operators
-they dispatch:
+``merge_epochs`` (``repro.analysis.contracts``): to jaxprs, whose
+primitives give the determinism verdict, and by ``jax.eval_shape``, whose
+output structures, shapes and dtypes prove the fold algebra. The port
+runs the same hooks once on small zero-filled CPU tensors.
+
+:func:`classify_determinism` runs them under a :class:`TorchDispatchMode`
+and reads the ATen operators they dispatch:
 
 * a float scatter-add: ``index_add``, ``scatter_add``, ``scatter_reduce``
   with ``sum`` or ``mean``, ``scatter`` with ``reduce="add"``,
@@ -23,19 +25,36 @@ reference words them. A fold that raises, or that coerces a tensor to a
 Python number (``aten._local_scalar_dense``: ``.item()``, ``int()``,
 ``bool()``), is :data:`UNKNOWN`: the counterpart of the reference's "not
 abstractly traceable". Float ``amax`` / ``amin`` reductions and sorts are
-not flagged, as the reference does not flag them. Nothing runs on a GPU.
+not flagged, as the reference does not flag them.
+
+:func:`check_fold_contract` proves the algebra with the reference's
+checks and codes: ``update`` keeps the state's structure, shapes and
+dtypes (a scan carry there), ``merge`` of the state stacked S times keeps
+its structure and dtypes, and ``merge_epochs`` is closed over the merged
+state. The structures compared are the port's states: a tensor, or
+dicts, tuples and lists of states.
+
+Eager execution accepts what a tracer refuses: a hook whose output shape
+depends on its data (``nonzero``, boolean masks; the built-ins fold their
+valid lanes so) runs here and fails ``jax.eval_shape`` there. The port
+does not imitate the tracer, so such a fold passes here; a coercion of a
+tensor to a Python number raises in both (``fold-not-traceable``).
+Nothing runs on a GPU.
 """
 from __future__ import annotations
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from repro_torch.analysis.report import Violation
 from repro_torch.core.surveys import MetaSpec, Survey, TriangleBatch, tree_map
 
 # determinism verdicts (stamped into EngineConfig.determinism)
 BITWISE = "bitwise"                  # fold algebra is reduction-order-free
 ORDER_SENSITIVE = "order_sensitive"  # result depends on fold/reduction order
 UNKNOWN = "unknown"                  # fold could not be traced
+
+VERDICTS = (BITWISE, ORDER_SENSITIVE, UNKNOWN)
 
 # storage widths (dvi, dvf, dei, def_) used when no graph schema is given;
 # wide enough for every built-in survey's default lane declarations
@@ -157,3 +176,201 @@ def classify_determinism(survey: Survey, widths=DEFAULT_WIDTHS, S: int = 4,
             "data-dependent shapes or Python int()/float()/bool() coercion "
             "of traced values in a fold hook"]
     return (ORDER_SENSITIVE if reasons else BITWISE), reasons
+
+
+# ---------------------------------------------------------------------------
+# fold algebra
+
+
+def _tree_sig(tree):
+    """(structure, [(shape, dtype) per leaf], [path per leaf]) of a state:
+    the structure a nested tuple of ``dict`` (sorted keys), ``tuple`` and
+    ``list`` nodes over ``*`` leaves, as a JAX treedef reads."""
+    sigs, paths = [], []
+
+    def walk(x, path):
+        if isinstance(x, dict):
+            return ("dict", tuple((k, walk(x[k], f"{path}[{k!r}]"))
+                                  for k in sorted(x)))
+        if isinstance(x, (tuple, list)):
+            return (type(x).__name__,
+                    tuple(walk(y, f"{path}[{i}]") for i, y in enumerate(x)))
+        if x is None:
+            return ("None", ())
+        if isinstance(x, torch.Tensor):
+            sigs.append((tuple(x.shape), x.dtype))
+        else:
+            sigs.append(((), type(x).__name__))
+        paths.append(path or "<root>")
+        return "*"
+
+    return walk(tree, ""), sigs, paths
+
+
+def _show(node) -> str:
+    """A structure from :func:`_tree_sig` as text (``{'n': *}``, ``(*,)``)."""
+    if node == "*":
+        return "*"
+    kind, kids = node
+    if kind == "dict":
+        return "{" + ", ".join(f"{k!r}: {_show(c)}" for k, c in kids) + "}"
+    if kind == "None":
+        return "None"
+    inner = ", ".join(_show(c) for c in kids)
+    if kind == "tuple":
+        return f"({inner},)" if len(kids) == 1 else f"({inner})"
+    return f"[{inner}]"
+
+
+def _dt(dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def check_fold_contract(survey: Survey, widths=DEFAULT_WIDTHS, S: int = 4,
+                        batch: int = 64,
+                        name: str | None = None) -> list[Violation]:
+    """Verify the epoch-merge algebra of one survey by running its hooks on
+    zero-filled CPU tensors: ``update`` on a batch of ``batch`` valid
+    lanes, ``merge`` on ``init()``'s state stacked ``S`` times,
+    ``merge_epochs(merged, merged)``, then ``merge_epochs`` once more on
+    its own output. The hooks run under the determinism scan's dispatch
+    mode, so a coercion of a tensor to a Python number raises (as it
+    fails the reference's trace).
+
+    Checks (each yields an actionable :class:`Violation` on failure; the
+    codes are the JAX package's):
+
+    * ``fold-carry-*`` — ``update`` keeps the state (structure, shape,
+      dtype all preserved);
+    * ``merge-*`` — ``merge(stacked)`` keeps ``init()``'s structure and
+      dtypes (shapes may change: concat-style merges are legal);
+    * ``epoch-merge-*`` — ``merge_epochs(prev, delta)`` is closed over the
+      merged-state algebra (structure + dtypes stable under accumulation),
+      so K epochs feed back without drift.
+    """
+    who = name or type(survey).__name__
+    v: list[Violation] = []
+    cpu = torch.device("cpu")
+    scan = _FoldScan([])
+
+    def bad(code: str, msg: str) -> None:
+        v.append(Violation("contracts", code, who, msg))
+
+    try:
+        spec = _resolve(survey, widths)
+    except Exception as e:
+        bad("meta-spec-unresolvable",
+            f"meta_spec does not resolve against storage widths {widths}: "
+            f"{e}")
+        return v
+    try:
+        state = survey.init(cpu)
+        s_def, s_sig, paths = _tree_sig(state)
+    except Exception as e:
+        bad("init-not-traceable",
+            f"init() is not abstractly traceable: {type(e).__name__}: {e}")
+        return v
+
+    # --- update: the state is carried from batch to batch ---
+    try:
+        tri = TriangleBatch.zeros(spec, batch, cpu)
+        with scan:
+            out = survey.update(tree_map(torch.clone, state), tri)
+        o_def, o_sig, _ = _tree_sig(out)
+        if o_def != s_def:
+            bad("fold-carry-structure",
+                f"update() returns pytree structure {_show(o_def)} but the "
+                f"state is {_show(s_def)}; the fold is scanned, so the carry "
+                "structure must be preserved")
+        else:
+            for p, (ss, sd), (os_, od) in zip(paths, s_sig, o_sig):
+                if od != sd:
+                    bad("fold-carry-dtype-drift",
+                        f"update() drifts state leaf {p} from {_dt(sd)} to "
+                        f"{_dt(od)}; a scan carry must keep its dtype — cast "
+                        "back explicitly inside update()")
+                elif os_ != ss:
+                    bad("fold-carry-shape-drift",
+                        f"update() drifts state leaf {p} from shape {ss} to "
+                        f"{os_}; a scan carry must keep static shapes — use "
+                        "fixed-capacity buffers")
+    except Exception as e:
+        bad("fold-not-traceable",
+            f"update() is not abstractly traceable: {type(e).__name__}: {e} "
+            "— data-dependent shapes or Python coercion of traced values")
+        return v
+
+    # --- merge: cross-shard reduce keeps the state algebra ---
+    try:
+        with scan:
+            merged = survey.merge(tree_map(lambda x: torch.stack([x] * S),
+                                           state))
+        m_def, m_sig, m_paths = _tree_sig(merged)
+        if m_def != s_def:
+            bad("merge-structure",
+                f"merge(stacked) returns pytree structure {_show(m_def)} but "
+                f"init() builds {_show(s_def)}; finalize/merge_epochs consume "
+                "the merged state, so the structure must be preserved")
+        else:
+            for p, (_, sd), (_, md) in zip(paths, s_sig, m_sig):
+                if md != sd:
+                    bad("merge-dtype-drift",
+                        f"merge(stacked) drifts state leaf {p} from {_dt(sd)} "
+                        f"to {_dt(md)}; cross-shard reduction must not "
+                        "promote — cast back explicitly (watch sum "
+                        "promotions: pass dtype= to .sum())")
+    except Exception as e:
+        bad("merge-not-traceable",
+            f"merge() is not abstractly traceable: {type(e).__name__}: {e}")
+        return v
+
+    # --- merge_epochs: closed over the merged-state algebra ---
+    try:
+        with scan:
+            acc = survey.merge_epochs(merged, merged)
+        a_def, a_sig, _ = _tree_sig(acc)
+        if a_def != m_def:
+            bad("epoch-merge-structure",
+                f"merge_epochs(prev, delta) returns pytree structure "
+                f"{_show(a_def)} but merged state is {_show(m_def)}; the "
+                "accumulator feeds back as prev_state, so the structure must "
+                "be closed")
+        else:
+            for p, (_, md), (_, ad) in zip(m_paths, m_sig, a_sig):
+                if ad != md:
+                    bad("epoch-merge-dtype-drift",
+                        f"merge_epochs drifts state leaf {p} from {_dt(md)} "
+                        f"to {_dt(ad)}; after one epoch the accumulator no "
+                        "longer matches a one-shot run's dtype — the bitwise "
+                        "incremental==recompute identity is broken. Cast "
+                        "back explicitly in merge_epochs")
+            # closure: the accumulator must feed back as prev for epoch K+1
+            with scan:
+                survey.merge_epochs(acc, merged)
+    except Exception as e:
+        bad("epoch-merge-not-closed",
+            f"merge_epochs does not accept its own output as prev_state: "
+            f"{type(e).__name__}: {e}")
+    return v
+
+
+def builtin_surveys(n: int = 256) -> list[tuple[str, Survey]]:
+    """Every built-in survey (plus a representative bundle), instantiated
+    small — the matrix the CLI verifies, as the JAX package's."""
+    from repro_torch.core.surveys import (ClosureTime, DegreeTriples,
+                                          Enumerate, LabelTripleSet,
+                                          LocalVertexCount, MaxEdgeLabelDist,
+                                          SurveyBundle, TopKWeightedTriangles,
+                                          TriangleCount)
+    return [
+        ("TriangleCount", TriangleCount()),
+        ("LocalVertexCount", LocalVertexCount(n)),
+        ("ClosureTime", ClosureTime()),
+        ("MaxEdgeLabelDist", MaxEdgeLabelDist(n_labels=8)),
+        ("DegreeTriples", DegreeTriples(capacity=512)),
+        ("LabelTripleSet", LabelTripleSet(capacity=1024)),
+        ("Enumerate", Enumerate(capacity=64)),
+        ("TopKWeightedTriangles", TopKWeightedTriangles(k=8)),
+        ("SurveyBundle", SurveyBundle([TriangleCount(), ClosureTime(),
+                                       LabelTripleSet(capacity=512)])),
+    ]

@@ -378,7 +378,8 @@ def _pull_setup(gr: ShardedDODGr, st: dict, cfg: EngineConfig, widths,
     first = torch.cat([ones, qs[:, 1:] != qs[:, :-1]], 1) & vq
     gid = torch.cumsum(first.to(torch.int32), 1, dtype=torch.int32) - 1
     gid = torch.where(vq, gid, E - 1).long()
-    vol = torch.zeros((S_ax, E), dtype=torch.int32, device=dev).scatter_add_(1, gid, sfx)
+    vol = torch.zeros((S_ax, E), dtype=torch.int32, device=dev).scatter_add_(
+        1, gid, sfx.to(torch.int32))
     vol_e = torch.gather(vol, 1, gid)
     dq = torch.gather(gr.nbr_dplus, 1, ordq)
     if cfg.cost_model == "entries":

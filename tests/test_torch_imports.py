@@ -20,6 +20,10 @@ def _modules():
 def test_import_loads_no_jax():
     mods = list(_modules())
     assert "repro_torch.core.engine" in mods
+    # the static verifier, its CLI and the byte model load no JAX either
+    assert {"repro_torch.analysis.conservation", "repro_torch.analysis.lint",
+            "repro_torch.analysis.__main__",
+            "repro_torch.roofline.analysis"} <= set(mods)
     code = ("import sys, importlib\n"
             f"sys.path.insert(0, {str(ROOT)!r})\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

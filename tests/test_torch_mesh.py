@@ -35,6 +35,7 @@ from repro_torch.core import pushpull as pt_pp
 from repro_torch.core import surveys as pt_sv
 from repro_torch.interop import state_to_numpy
 from repro_torch.launch.mesh import RankRun
+from repro_torch.roofline import reconcile_collectives
 from test_exchange import _hub_theta_for
 from test_round_schedule import _rand_caps
 from test_torch_delta import bundle as bundle7, labeled_graph, stream
@@ -298,7 +299,8 @@ def test_collective_bytes_equal_the_plan(runs, cell, mode):
     VolumeReport's wire bytes on uniform caps (the all-to-all block, self
     chunk included); on scheduled rounds each source's padded slice,
     ``MeshExchange.sent_round_slots()``, per superstep, and per rank at
-    most the schedule's ``wire_slots`` (the reference's count)."""
+    most the schedule's ``wire_slots`` (the reference's count); and
+    ``reconcile_collectives`` holds the same counters ``ok``."""
     key = ("bundle", cell, mode)
     cfg, mcfg, rep, _ = runs.plans[key]
     outs = runs.each_rank(key)
@@ -322,6 +324,11 @@ def test_collective_bytes_equal_the_plan(runs, cell, mode):
             assert mx.wire_round_slots() == sched_slots
             assert max(per_rank) <= steps * sched_slots * words[lane] * 4
     assert not any("push_back" in o["bytes"] for o in outs)
+    # the same counters, reconciled by the byte model
+    rec = reconcile_collectives([o["bytes"] for o in outs], mcfg, S=S,
+                                volume=rep)
+    assert rec["ok"], rec["lanes"]
+    assert rec["extra_bytes"] == 0 and rec["other_bytes"] > 0
 
 
 def test_mesh_size_must_match_shards(runs):
