@@ -70,7 +70,13 @@ Phases (every failure ends the run with a non-zero exit):
    two ingested batches alike (answers, stats, tokens, counters);
    checkpoint → restore → a memo-hit query launches no kernel; a query
    thread answers while a third batch is pending, each answer equal to
-   the CPU's at its epoch. The mesh: S=4 rank processes sharing the card
+   the CPU's at its epoch; a sampled (``sample_p = 0.5``, DOULION)
+   push-pull TriangleCount on the card equals the CPU's; the served
+   mesh: S=4 ranks (a ``RankPool`` sharing the card over gloo, and over
+   nccl where there are four cards) run the same script and the sampled
+   query through ``SurveyService(mesh=pool)``, equal to the card's
+   stacked service and the CPU's (answers, stats, tokens, counters).
+   The mesh: S=4 rank processes sharing the card
    over gloo (``repro_torch.launch.mesh``; each collective staged through
    host memory) run karate and rmat(9, 16) with seeded metadata: the
    bundle of all eight, push and push-pull, over scheduled rounds
@@ -86,8 +92,8 @@ Phases (every failure ends the run with a non-zero exit):
    factor 16, seed 0; S=8 logical shards on the card, dense transport,
    ``plan_engine(..., push_cap=4096, pull_q_cap=16)``, through the user
    entry points (``shard_dodgr`` → ``plan_engine`` → ``survey_push_only``
-   / ``survey_push_pull``). Seven paths, each with the launch counts set
-   to 0 just before it and read just after (path g: in each rank):
+   / ``survey_push_pull``). Eight paths, each with the launch counts set
+   to 0 just before it and read just after (paths g and h: in each rank):
 
    a. the first slice's: degree metadata; TriangleCount and
       DegreeTriples(capacity=4096), push-pull, and push-only on the same
@@ -154,14 +160,27 @@ Phases (every failure ends the run with a non-zero exit):
       before each survey and read just after). Over nccl too, one rank per card, where there are eight
       cards; otherwise one line says it was not run and how many cards
       there are.
+   h. the served mesh: path f's service, graph and requests again with
+      ``mesh=`` a ``RankPool`` of eight long-lived ranks sharing the card
+      over gloo (over nccl too where there are eight cards): the parent
+      plans and shards on the host, each cache entry's slices stay
+      resident on the ranks, each traversal (the residents' warm-up, the
+      cold query, the epoch) runs there. Every answer, the residents'
+      state, each memoized state and the cache and ingest counters equal
+      path f's bit for bit (stats within float32 rounding); the memo hit
+      sends the pool no job; each traversal's bytes reconcile with its
+      plan per lane; the ranks hold exactly the cache's entries at the
+      end. Each request's wall, the pool's ready seconds, the slowest
+      rank's collective and staging seconds per traversal, the largest
+      rank's peak and the launches over the ranks.
 
    Every run is exact and every kernel of a path launched on it. Every
    plan a path runs is audited by ``repro_torch.analysis.check_plan``
    (routing maps injective, every fed slot received, a bucketed plan the
    exact plan rounded up, the ``VolumeReport`` reconciled word for word):
    a's four, b's bundle, c's split lane, d's two hub plans, e's two
-   ``plan_delta`` epochs, each plan in f's service plan cache, g's mesh
-   plan, and g's relabelled plan as the dense plan it is, with the mesh
+   ``plan_delta`` epochs, each plan in f's and h's service plan caches,
+   g's mesh plan, and g's relabelled plan as the dense plan it is, with the mesh
    exchanges its caps build; each audit's seconds on a line of its own,
    and any violation fails the run. A capture run (DegreeTriples and
    Enumerate bundled, on path a's graph) and path c keep one superstep's operands of each kernel, on which each
@@ -183,7 +202,7 @@ Phases (every failure ends the run with a non-zero exit):
    wedge_intersect at rank 0's largest launch on path g, with path g's
    launches; fold_count_max on path a's largest fold with rows of 16
    words (no real call); every row with the kernel's launches on each
-   path a–g. On lines before the
+   path a–h. On lines before the
    JSON: wedge_intersect at the fullest and at the last pull superstep,
    the fold_count_max launch bins, and the same measures of
    fold_count_max at its typical fold.
@@ -274,10 +293,11 @@ PATH_KERNELS = {
     "delta": ("wedge_check", "fold_count_max"),
     "served": ("wedge_check", "fold_count_max", "hist_add"),
     "mesh": ("wedge_check", "wedge_intersect", "fold_count_max"),
+    "served_mesh": ("wedge_check", "fold_count_max", "hist_add"),
 }
 # the letters PERF.md gives the full-size paths
 PATH_LETTERS = {"first": "a", "bundle": "b", "split": "c", "hub": "d",
-                "delta": "e", "served": "f", "mesh": "g"}
+                "delta": "e", "served": "f", "mesh": "g", "served_mesh": "h"}
 REPORTED_PATH = {"wedge_check": "first", "wedge_intersect": "first",
                  "fold_count_max": "first", "ring_set": "bundle",
                  "hist_add": "bundle", "hist_max": "bundle",
@@ -1119,6 +1139,8 @@ def phase_small_delta(torch, report, dev):
 
 
 SMALL_SERVE = dict(hub_theta=5, push_cap=64)   # tests/test_torch_serve.py's
+# the small sampled service: push-pull, dense, p = 1/2
+SMALL_SAMPLED = dict(push_cap=64, pull_q_cap=4, sample_p=0.5, sample_seed=7)
 
 
 def served_answer(result, stats):
@@ -1135,7 +1157,10 @@ def phase_small_serve(torch, report, dev):
     tokens and counters on the card equal the CPU's; checkpoint → restore
     → a memo-hit query that launches no kernel; and a query thread
     answering while a third batch is pending, each answer from a whole
-    snapshot and equal to the CPU's at its epoch."""
+    snapshot and equal to the CPU's at its epoch. Then a sampled query
+    (the first DOULION run on the card), card == CPU, and the script and
+    the sampled query again over four ranks of a ``RankPool``, equal to
+    the card's stacked service."""
     import threading
 
     from repro_torch.core.ref import count_triangles_ref
@@ -1158,9 +1183,10 @@ def phase_small_serve(torch, report, dev):
     out_dir = ROOT / "build" / "serve_small"
     out_dir.mkdir(parents=True, exist_ok=True)
 
-    def script(d):
-        svc = SurveyService(base, 4, device=d, **SMALL_SERVE, resident={
-            "tc": TriangleCount(), "dt": DegreeTriples(deg_col=1)})
+    def script(d, mesh=None):
+        svc = SurveyService(base, 4, device=d, mesh=mesh, **SMALL_SERVE,
+                            resident={"tc": TriangleCount(),
+                                      "dt": DegreeTriples(deg_col=1)})
         log_ = [served_answer(*svc.query(DegreeTriples(deg_col=1)))]
         out = svc.query_coalesced(reqs)
         log_.append({t: served_answer(*out[t]) for t in out})
@@ -1227,12 +1253,74 @@ def phase_small_serve(torch, report, dev):
     svc.close()
     cpu.close()
     card_epochs = sorted({ep for ep, _ in seen})
-    report["small_serve"] = dict(seconds=time.perf_counter() - t0,
-                                 epochs_queried=card_epochs,
-                                 queries_during_ingest=len(seen))
+
+    # DOULION: a sampled ad-hoc TriangleCount, card == CPU
+    def sampled(d, mesh=None):
+        s_svc = SurveyService(base, 4, device=d, mesh=mesh, **SMALL_SAMPLED)
+        try:
+            return served_answer(*s_svc.query(TriangleCount()))
+        finally:
+            s_svc.close()
+
+    sampled_card = sampled(dev)
+    require(same(sampled_card, sampled("cpu")),
+            "small serve: the sampled answer on the card != the CPU's")
+    require(sampled_card[1]["sample_p"] == SMALL_SAMPLED["sample_p"],
+            "small serve: the sampled query was not sampled")
+    report["small_serve"] = dict(
+        epochs_queried=card_epochs, queries_during_ingest=len(seen),
+        sampled=dict(count=sampled_card[0],
+                     rel_stderr=sampled_card[1]["sample_rel_stderr"]))
     log(f"small serve: card == CPU (query, coalesced, 2 batches, restore "
         f"from the memo, {len(seen)} queries during a third batch at epochs "
-        f"{card_epochs}), {report['small_serve']['seconds']:.1f} s")
+        f"{card_epochs}; sampled p = {SMALL_SAMPLED['sample_p']}: "
+        f"{sampled_card[0]} triangles, rel. stderr "
+        f"{sampled_card[1]['sample_rel_stderr']:.3f})")
+
+    # the served mesh: S=4 ranks on the card, the same script and the
+    # sampled query, equal to the card's stacked service and the CPU's
+    def served_mesh(backend):
+        from repro_torch.launch.mesh import RankPool
+
+        t_pool = time.perf_counter()
+        with RankPool(4, backend=backend,
+                      device=None if dev.type == "cuda" else "cpu",
+                      timeout=600,
+                      workdir=mesh_workdir("served_small") / backend) as pool:
+            ready_s = max(r["ready_s"] for r in pool.ready())
+            pool.log = []
+            m_svc, on_mesh = script(dev, mesh=pool)
+            m_svc.close()
+            sampled_mesh = sampled(dev, mesh=pool)
+            jobs = len(pool.log)
+            launches = {k: sum(r["launches"][k] for _, recs in pool.log
+                               for r in recs) for k in read_launches()}
+        require(same(on_mesh, on_card),
+                f"small served mesh {backend}: answers != the card's stacked "
+                "service's")
+        require(same(sampled_mesh, sampled_card),
+                f"small served mesh {backend}: the sampled answer != the "
+                "card's stacked service's")
+        for k in ("wedge_check", "fold_count_max"):
+            require(launches[k] > 0 or dev.type != "cuda",
+                    f"small served mesh {backend}: {k} never launched")
+        out = dict(seconds=time.perf_counter() - t_pool, ready_s=ready_s,
+                   jobs=jobs, launches=launches)
+        log(f"small served mesh: 4 ranks over {backend}, the serve script "
+            f"and the sampled query == card stacked == CPU (answers, stats, "
+            f"tokens, counters); ranks ready {ready_s:.1f} s, {jobs} jobs, "
+            f"{out['seconds']:.1f} s; launches in the ranks {launches}")
+        return out
+
+    report["small_serve"]["mesh_gloo"] = served_mesh("gloo")
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if cards >= 4:
+        report["small_serve"]["mesh_nccl"] = served_mesh("nccl")
+    else:
+        log(f"small served mesh: NCCL not run: {cards} card(s) seen; nccl "
+            "needs one card per rank (4)")
+    report["small_serve"]["seconds"] = time.perf_counter() - t0
+    log(f"small serve: {report['small_serve']['seconds']:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -1256,7 +1344,8 @@ def check_mesh_bytes(tag, outs, cfg, rep, S) -> dict:
     outputs ``outs`` of one job), reconciled with the plan's byte model
     (``reconcile_collectives``: each lane == the plan's sent bytes, no
     rank over the schedule's per-device bytes, nothing on an unknown
-    lane); returns the reconciliation's lanes."""
+    lane; the padding where the plan's report ``rep`` is given); returns
+    the reconciliation's lanes."""
     from repro_torch.roofline import reconcile_collectives
 
     rec = reconcile_collectives([o["bytes"] for o in outs], cfg, S=S,
@@ -1267,7 +1356,8 @@ def check_mesh_bytes(tag, outs, cfg, rep, S) -> dict:
     log(f"{tag}: bytes " + "; ".join(
         f"{k} {r['measured']} == sent {r['sent']} (per device <= "
         f"{r['per_device']}, largest rank {r['rank_max']}, padding "
-        f"{r['padding']})" for k, r in lanes.items())
+        f"{r.get('padding', 'not known without the plan report')})"
+        for k, r in lanes.items())
         + f"; merge {rec['other_bytes']} (not reconciled)")
     return lanes
 
@@ -1918,9 +2008,12 @@ def phase_full(torch, report, scale, dev):
         torch, dev, full, g, S, expect,
         results[("DegreeTriples", "pushpull")][0], launches,
         g_cut, expect_cut)
-    lane_rows += path_served(torch, dev, full, g_cut, S, expect_cut, launches)
+    rows_f, f_out = path_served(torch, dev, full, g_cut, S, expect_cut,
+                                launches)
+    lane_rows += rows_f
     lane_rows += path_mesh(torch, dev, full, g, gr, expect, plans, reports,
                            results, launches)
+    path_served_mesh(torch, dev, full, g_cut, MESH_FULL_S, f_out, launches)
 
     # capture one superstep's inputs of each kernel: DegreeTriples and
     # Enumerate bundled on path a's graph run wedge_check, wedge_intersect,
@@ -2214,18 +2307,15 @@ def path_served(torch, dev, full, g, S, expect, launches):
     read before and after. The first tenant equals the residents' count
     of the base (two traversals), the residents after the epoch the known
     count ``expect``. Peak memory is read above what was resident before
-    the service. Returns the lane rows of its kernels (as ``lane_rows``)."""
+    the service. Returns the lane rows of its kernels (as ``lane_rows``)
+    and its answers, states and counters (``served_outputs``), which path
+    h is held to."""
     from repro_torch.core.surveys import (DegreeTriples, LocalVertexCount,
                                           TriangleCount)
-    from repro_torch.graphs.csr import HostGraph
-    from repro_torch.serve import SurveyService, TenantRequest
+    from repro_torch.serve import SurveyService
 
     served = full["served"] = dict(push_cap=65536, hub_wedge_cap=1 << 20)
-    held, keep = held_out(g.m)
-    g_base = HostGraph(g.n, g.src[keep], g.dst[keep], g.spec, g.vmeta_i,
-                       g.vmeta_f, g.emeta_i[keep], g.emeta_f[keep])
-    reqs = [TenantRequest("t1", TriangleCount()),
-            TenantRequest("t2", LocalVertexCount(n=g.n))]
+    g_base, held, reqs = served_requests(g)
     walls = served["walls"] = {}
     caps = capture_lanes(PATH_KERNELS["served"])
 
@@ -2240,10 +2330,8 @@ def path_served(torch, dev, full, g, S, expect, launches):
     def served_path():
         resident = memory_reset(torch, dev)
         svc = timed("service", lambda: SurveyService(
-            g_base, S, mode="push", push_cap=65536, hub_theta="auto",
-            hub_wedge_cap=1 << 20, cap_policy="bucket", device=dev,
-            resident={"tc": TriangleCount(),
-                      "dt": DegreeTriples(capacity=4096)}))
+            g_base, S, device=dev, **SERVED, resident={
+                "tc": TriangleCount(), "dt": DegreeTriples(capacity=4096)}))
         try:
             cold = timed("cold", lambda: svc.query_coalesced(reqs))
             before = read_launches()
@@ -2259,6 +2347,7 @@ def path_served(torch, dev, full, g, S, expect, launches):
                 emeta_f=g.emeta_f[held], wait=True))
             answers = timed("resident", svc.resident_answers)
             ist = svc.ingest_stats()
+            outputs = served_outputs(svc, cold, warm, base_answers, answers)
         finally:
             svc.close()
         served.update(
@@ -2268,10 +2357,10 @@ def path_served(torch, dev, full, g, S, expect, launches):
                         n_push_steps=e.cfg.n_push_steps,
                         n_hub_steps=e.cfg.n_hub_steps, e_cap=e.gr.e_cap,
                         nbytes=e.nbytes, stats=e.raw[1]) for e in plans])
-        return cold, warm, base_answers, answers
+        return cold, warm, base_answers, answers, outputs
 
-    (cold, warm, base_answers, answers), launches["served"] = run_path(
-        torch, dev, "served", served_path)
+    (cold, warm, base_answers, answers, outputs), launches["served"] = \
+        run_path(torch, dev, "served", served_path)
     rows = lane_rows("served", caps, launches, dev)
     for t in ("t1", "t2"):
         require(same(warm[t][0], cold[t][0]), f"served {t}: warm != cold")
@@ -2310,7 +2399,240 @@ def path_served(torch, dev, full, g, S, expect, launches):
         f"{served['peak_above'] / 2**30:.2f} GiB above "
         f"{served['resident'] / 2**30:.2f} GiB resident; launches "
         f"{launches['served']}; plans {served['plans']}")
-    return rows
+    return rows, outputs
+
+
+# path f's service, which path h runs again over a rank pool
+SERVED = dict(mode="push", push_cap=65536, hub_theta="auto",
+              hub_wedge_cap=1 << 20, cap_policy="bucket")
+
+
+def served_requests(g):
+    """Paths f's and h's base graph (``g`` less ``held_out``), the held-out
+    edges and the two tenants."""
+    from repro_torch.core.surveys import LocalVertexCount, TriangleCount
+    from repro_torch.graphs.csr import HostGraph
+    from repro_torch.serve import TenantRequest
+
+    held, keep = held_out(g.m)
+    g_base = HostGraph(g.n, g.src[keep], g.dst[keep], g.spec, g.vmeta_i,
+                       g.vmeta_f, g.emeta_i[keep], g.emeta_f[keep])
+    return g_base, held, [TenantRequest("t1", TriangleCount()),
+                          TenantRequest("t2", LocalVertexCount(n=g.n))]
+
+
+SERVED_COUNTERS = ("plan_cache_hits", "plan_cache_misses",
+                   "plan_cache_evictions", "plan_cache_entries",
+                   "plan_cache_bytes", "jit_cache_hits",
+                   "jit_cache_recompiles", "jit_cache_entries")
+
+
+def served_outputs(svc, cold, warm, base_answers, answers) -> dict:
+    """What paths f and h must agree on: the answers (results bit for
+    bit; stats apart, within their float32 rounding), the residents'
+    state, each cache entry's memoized state, the cache counters and the
+    ingest counters (timings aside)."""
+    from repro_torch.interop import state_to_numpy
+
+    entries = [svc.cache.peek(k) for k in svc.cache.keys()]
+    ist = svc.ingest_stats()
+    return dict(
+        results=[{t: out[t][0] for t in out} for out in (cold, warm)],
+        stats=[{t: served_answer(*out[t])[1] for t in out}
+               for out in (cold, warm)],
+        residents=(base_answers, answers),
+        state=state_to_numpy(svc.snapshot.resident_state),
+        memo=[(e.key, state_to_numpy(e.raw[0])) for e in entries],
+        memo_stats=[e.raw[1] for e in entries],
+        counters=[{k: out[t][1][k] for t in out for k in SERVED_COUNTERS}
+                  for out in (cold, warm)],
+        ingest={k: v for k, v in ist.items() if not k.startswith("apply_s")},
+        steps=[(e.cfg.n_push_steps, e.cfg.n_hub_steps, e.cfg.n_pull_steps)
+               for e in entries])
+
+
+def stats_near(a: dict, b: dict, adds: int) -> bool:
+    """Two runs' stats equal where exact (flags, counters) and within
+    float32 rounding where summed: each within ``adds`` half-ulps of the
+    other (ROADMAP Queue 3 (k): the mesh sums per rank, then in rank
+    order)."""
+    if a.keys() != b.keys():
+        return False
+    for k, v in a.items():
+        w = b[k]
+        if isinstance(v, float) and isinstance(w, float) and v != w:
+            if not f32_near(v, round(w), 2 * adds):
+                return False
+        elif v != w:
+            return False
+    return True
+
+
+def path_served_mesh(torch, dev, full, g, S, f_out, launches):
+    """Path h, the served mesh: path f's service (``SERVED``, on path f's
+    graph ``g`` less ``held_out``) with ``mesh=`` a ``RankPool`` of S ranks
+    sharing the card over gloo, through path f's requests: the service
+    built (the residents' warm-up traversal), a cold coalesced
+    TriangleCount + LocalVertexCount, the same again (a memo hit: the
+    pool gets no job and no rank launches), one ingested epoch of the
+    held-out edges, the residents' answers before and after. Every
+    answer, state and counter equals path f's (``f_out``) bit for bit,
+    the stats within float32 rounding; each plan is audited; each
+    traversal's collective bytes reconcile with its plan per lane; the
+    ranks hold exactly the cache's entries at the end. Over nccl too
+    where there is a card per rank. The walls per request, the pool's
+    ready seconds, the slowest rank's collective and staging seconds per
+    traversal, the largest rank's peak and the launches over the ranks
+    (the parent's: the residents' ``merge_epochs``)."""
+    from repro_torch.core.surveys import DegreeTriples, TriangleCount
+    from repro_torch.launch.mesh import RankPool
+    from repro_torch.serve import SurveyService
+
+    h = full["served_mesh"] = dict(S=S, config=SERVED)
+    g_base, held, reqs = served_requests(g)
+
+    def run(backend):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        reset_launches()
+        walls, marks = {}, {}
+        t_start = time.perf_counter()
+        with RankPool(S, backend=backend,
+                      device=None if dev.type == "cuda" else "cpu",
+                      timeout=900,
+                      workdir=mesh_workdir("served") / backend) as pool:
+            ready_s = max(r["ready_s"] for r in pool.ready())
+            pool.log = []
+
+            def timed(name, fn):
+                n0, t0 = len(pool.log), time.perf_counter()
+                out = fn()
+                walls[name] = time.perf_counter() - t0
+                marks[name] = (n0, len(pool.log))
+                return out
+
+            svc = timed("service", lambda: SurveyService(
+                g_base, S, device=dev, mesh=pool, **SERVED, resident={
+                    "tc": TriangleCount(), "dt": DegreeTriples(capacity=4096)}))
+            try:
+                cold = timed("cold", lambda: svc.query_coalesced(reqs))
+                jobs0, before = pool.jobs_sent, read_launches()
+                warm = timed("warm", lambda: svc.query_coalesced(reqs))
+                memo = dict(jobs=pool.jobs_sent - jobs0,
+                            parent_launches={k: v - before[k] for k, v in
+                                             read_launches().items()})
+                entries = [svc.cache.peek(k) for k in svc.cache.keys()]
+                for i, e in enumerate(entries):
+                    audit_plan(full, f"h {backend} service plan {i} "
+                               f"({e.key[:12]})", e.cfg, e.report)
+                base_answers = svc.resident_answers()
+                timed("ingest", lambda: svc.append_edges(
+                    g.src[held], g.dst[held], emeta_i=g.emeta_i[held],
+                    emeta_f=g.emeta_f[held], wait=True))
+                answers = timed("resident", svc.resident_answers)
+                out = served_outputs(svc, cold, warm, base_answers, answers)
+                on_ranks = [k for ns, k in pool.keys() if ns == svc.mesh_ns]
+                require(on_ranks == sorted(svc.cache.keys()),
+                        f"path h {backend}: the ranks hold {on_ranks}, the "
+                        f"cache {sorted(svc.cache.keys())}")
+            finally:
+                svc.close()
+            log_ = pool.log
+        wall = time.perf_counter() - t_start
+        parent = read_launches()   # the residents' merge_epochs, on the card
+        require(memo["jobs"] == 0 and not any(memo["parent_launches"].values()),
+                f"path h {backend}: the memo hit sent {memo['jobs']} job(s) "
+                f"to the pool and launched {memo['parent_launches']}")
+        # what every traversal did on the ranks, by request
+        reports = {e.key: e.report for e in entries}
+        runs = []
+        for name, (a, b) in marks.items():
+            for job, recs in log_[a:b]:
+                if job["kind"] != "run":
+                    continue
+                key, cfg = job["key"][1], job["cfg"]
+                tag = f"path h {backend} {name} traversal {len(runs)}"
+                runs.append(dict(
+                    request=name, cache_key=key, delta=cfg.delta,
+                    wall_s=max(r["wall_s"] for r in recs),
+                    wire_s_max=max(r["wire_s"] for r in recs),
+                    stage_s_max=max(r["stage_s"] for r in recs),
+                    peak=max(r["peak"] for r in recs),
+                    resident=max(r["resident"] for r in recs),
+                    bytes_reconciled=check_mesh_bytes(
+                        tag, recs, cfg, reports.get(key), S)))
+        require([r["request"] for r in runs] == ["service", "cold", "ingest"],
+                f"path h {backend}: traversals {runs}, not one each for the "
+                "build, the cold query and the epoch")
+        total = {k: sum(r["launches"][k] for _, recs in log_ for r in recs)
+                 for k in read_launches()}
+        for k in PATH_KERNELS["served_mesh"]:
+            require(total[k] > 0 or dev.type != "cuda",
+                    f"{k} never launched on path h ({backend})")
+        return out, dict(wall_s=wall, ready_s=ready_s, walls=walls,
+                         memo=memo, traversals=runs, launches=total,
+                         parent_launches=parent,
+                         peak=max(r["peak"] for r in runs),
+                         jobs=[job["kind"] for job, _ in log_])
+
+    def check(backend, out):
+        tag = f"path h {backend}"
+        for i, which in enumerate(("cold", "warm")):
+            require(same(out["results"][i], f_out["results"][i]),
+                    f"{tag} {which}: answers != path f's")
+            require(out["counters"][i] == f_out["counters"][i],
+                    f"{tag} {which}: cache counters {out['counters'][i]} != "
+                    f"path f's {f_out['counters'][i]}")
+        adds = [S * (sum(st) + 1) for st in f_out["steps"]]
+        for i, which in enumerate(("cold", "warm")):
+            for t, st in out["stats"][i].items():
+                require(stats_near(st, f_out["stats"][i][t], max(adds)),
+                        f"{tag} {which} {t}: stats {st} not within float32 "
+                        f"rounding of path f's {f_out['stats'][i][t]}")
+        require(same(out["residents"], f_out["residents"]),
+                f"{tag}: resident answers != path f's")
+        require(same(out["state"], f_out["state"]),
+                f"{tag}: resident state != path f's")
+        require(same(out["memo"], f_out["memo"]),
+                f"{tag}: memoized states != path f's")
+        for st, want, a in zip(out["memo_stats"], f_out["memo_stats"], adds):
+            require(stats_near(st, want, a),
+                    f"{tag}: memoized stats {st} != path f's {want}")
+        require(out["ingest"] == f_out["ingest"],
+                f"{tag}: ingest counters {out['ingest']} != path f's "
+                f"{f_out['ingest']}")
+
+    def show(backend, r):
+        log(f"path h {backend}: {S} ranks ready {r['ready_s']:.1f} s after "
+            f"the start, whole path {r['wall_s']:.1f} s; walls "
+            f"{json.dumps(r['walls'])}; memo hit: {r['memo']['jobs']} jobs; "
+            f"largest rank's peak {r['peak'] / 2**30:.2f} GiB; launches over "
+            f"the ranks {r['launches']}, in the parent (merging the epoch) "
+            f"{r['parent_launches']}")
+        for t in r["traversals"]:
+            log(f"path h {backend} {t['request']} traversal: "
+                f"{t['wall_s']:.2f} s (the slowest rank), collectives "
+                f"{t['wire_s_max']:.2f} s, staging {t['stage_s_max']:.2f} s "
+                f"(the slowest rank's), peak {t['peak'] / 2**30:.2f} GiB "
+                f"({t['resident'] / 2**30:.2f} resident)")
+
+    out, h["gloo"] = run("gloo")
+    check("gloo", out)
+    show("gloo", h["gloo"])
+    launches["served_mesh"] = h["gloo"]["launches"]
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if cards >= S:
+        out, h["nccl"] = run("nccl")
+        check("nccl", out)
+        show("nccl", h["nccl"])
+    else:
+        h["nccl"] = f"not run: {cards} card(s) seen, {S} ranks need {S}"
+        log(f"path h: NCCL not run: {cards} card(s) seen; nccl needs one "
+            f"card per rank ({S})")
+    log(f"path h: == path f bit for bit (answers, residents, states, "
+        f"counters; stats within float32 rounding), plans audited, bytes "
+        f"reconciled per traversal")
 
 
 def path_mesh(torch, dev, full, g, gr, expect, plans, reports, results,

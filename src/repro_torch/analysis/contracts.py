@@ -21,11 +21,16 @@ and reads the ATen operators they dispatch:
   ``multinomial``, ``exponential_``, ...).
 
 Either stamps :data:`ORDER_SENSITIVE`, with the reasons worded as the
-reference words them. A fold that raises, or that coerces a tensor to a
+reference words them. A fold that raises, that coerces a tensor to a
 Python number (``aten._local_scalar_dense``: ``.item()``, ``int()``,
-``bool()``), is :data:`UNKNOWN`: the counterpart of the reference's "not
-abstractly traceable". Float ``amax`` / ``amin`` reductions and sorts are
-not flagged, as the reference does not flag them.
+``bool()``) or whose shapes depend on its data (an operator tagged
+``dynamic_output_shape``: ``nonzero``, ``masked_select``, ``unique``,
+...; ``index`` or ``index_put`` with a boolean or uint8 index) is
+:data:`UNKNOWN`: the counterparts of the reference's "not abstractly
+traceable". Integer gathers stay legal, and so does ``bincount``, whose
+twin there takes a static ``length``. Float ``amax`` / ``amin``
+reductions and sorts are not flagged, as the reference does not flag
+them.
 
 :func:`check_fold_contract` proves the algebra with the reference's
 checks and codes: ``update`` keeps the state's structure, shapes and
@@ -34,12 +39,13 @@ its structure and dtypes, and ``merge_epochs`` is closed over the merged
 state. The structures compared are the port's states: a tensor, or
 dicts, tuples and lists of states.
 
-Eager execution accepts what a tracer refuses: a hook whose output shape
-depends on its data (``nonzero``, boolean masks; the built-ins fold their
-valid lanes so) runs here and fails ``jax.eval_shape`` there. The port
-does not imitate the tracer, so such a fold passes here; a coercion of a
-tensor to a Python number raises in both (``fold-not-traceable``).
-Nothing runs on a GPU.
+Eager execution accepts what a tracer refuses, so the scan refuses it
+as ``jax.eval_shape`` does: a coercion of a tensor to a Python number
+and an operator with a data-dependent output shape raise in both
+(``fold-not-traceable``). The built-ins fold their valid lanes through
+``TriangleBatch.valid_index`` (a ``nonzero``); the check's batch is all
+valid lanes, and its index is computed before the scan is entered, so
+only a fold's own dynamic shapes are refused. Nothing runs on a GPU.
 """
 from __future__ import annotations
 
@@ -69,6 +75,40 @@ _RNG = {"normal", "uniform", "bernoulli", "multinomial", "exponential",
 
 class _HostCoercion(RuntimeError):
     pass
+
+
+class _DynamicShape(RuntimeError):
+    pass
+
+
+# tagged dynamic_output_shape but traceable in the reference: its twin,
+# jnp.bincount(length=...), has a static shape
+_STATIC_TWIN = {"bincount"}
+# refused only with a boolean (or uint8) index: a gather's shape, and the
+# positions a masked assignment writes, then depend on the data
+_MASKABLE = {"index", "index_put", "_index_put_impl"}
+
+
+def _dynamic_shape(func, name: str, args) -> bool:
+    """Whether ``func`` on ``args`` depends on the data for a shape the
+    reference's trace must know: an operator tagged
+    ``dynamic_output_shape``, where ``index`` (and ``index_put``, which
+    the reference refuses alike) counts only with a boolean or uint8
+    index; an integer gather's shape is its index's."""
+    if name in _MASKABLE:
+        idx = args[1] if len(args) > 1 else ()
+        return any(isinstance(i, torch.Tensor)
+                   and i.dtype in (torch.bool, torch.uint8) for i in idx)
+    return (torch.Tag.dynamic_output_shape in func.tags
+            and name not in _STATIC_TWIN)
+
+
+def _valid_batch(spec: MetaSpec, batch: int) -> TriangleBatch:
+    """The check's batch: ``batch`` valid zero lanes on the CPU, with its
+    valid-lane index computed here, outside the scan."""
+    tri = TriangleBatch.zeros(spec, batch, torch.device("cpu"))
+    _ = tri.valid_index   # a cached property: its nonzero runs here, once
+    return tri
 
 
 def _arg(args, kwargs, i: int, name: str, default=None):
@@ -107,7 +147,8 @@ def _float_accumulator(base: str, args, kwargs):
 
 class _FoldScan(TorchDispatchMode):
     """Records the bitwise-contract breakers among the operators a fold
-    hook dispatches; raises on a host coercion."""
+    hook dispatches; raises on a host coercion and on a data-dependent
+    output shape."""
 
     def __init__(self, reasons: list[str]):
         super().__init__()
@@ -122,6 +163,9 @@ class _FoldScan(TorchDispatchMode):
             raise _HostCoercion(
                 "aten._local_scalar_dense: .item(), int(), float() or "
                 "bool() of a tensor")
+        if _dynamic_shape(func, name, args):
+            raise _DynamicShape(
+                f"aten.{name}: a shape that depends on the data")
         acc = _float_accumulator(base, args, kwargs)
         if acc is not None:
             self.reasons.append(
@@ -151,15 +195,15 @@ def classify_determinism(survey: Survey, widths=DEFAULT_WIDTHS, S: int = 4,
     """Classify a survey's fold algebra: :data:`BITWISE`,
     :data:`ORDER_SENSITIVE` (flagged operators in a fold hook, with the
     reasons returned) or :data:`UNKNOWN` (a hook raised, or coerced a
-    tensor to a Python number). Runs ``update`` on a zero-filled batch of
-    ``batch`` valid lanes at the spec's widths, ``merge`` on the updated
-    state stacked ``S`` times, then ``merge_epochs(merged, merged)``, all
-    on the CPU."""
+    tensor to a Python number, or gave a shape that depends on the data).
+    Runs ``update`` on a zero-filled batch of ``batch`` valid lanes at the
+    spec's widths, ``merge`` on the updated state stacked ``S`` times,
+    then ``merge_epochs(merged, merged)``, all on the CPU."""
     reasons: list[str] = []
     scan = _FoldScan(reasons)
     try:
         cpu = torch.device("cpu")
-        tri = TriangleBatch.zeros(_resolve(survey, widths), batch, cpu)
+        tri = _valid_batch(_resolve(survey, widths), batch)
         state = survey.init(cpu)
         with scan:
             scan.hook = "update"
@@ -234,8 +278,9 @@ def check_fold_contract(survey: Survey, widths=DEFAULT_WIDTHS, S: int = 4,
     lanes, ``merge`` on ``init()``'s state stacked ``S`` times,
     ``merge_epochs(merged, merged)``, then ``merge_epochs`` once more on
     its own output. The hooks run under the determinism scan's dispatch
-    mode, so a coercion of a tensor to a Python number raises (as it
-    fails the reference's trace).
+    mode, so a coercion of a tensor to a Python number and a
+    data-dependent output shape raise (as they fail the reference's
+    trace).
 
     Checks (each yields an actionable :class:`Violation` on failure; the
     codes are the JAX package's):
@@ -273,7 +318,7 @@ def check_fold_contract(survey: Survey, widths=DEFAULT_WIDTHS, S: int = 4,
 
     # --- update: the state is carried from batch to batch ---
     try:
-        tri = TriangleBatch.zeros(spec, batch, cpu)
+        tri = _valid_batch(spec, batch)
         with scan:
             out = survey.update(tree_map(torch.clone, state), tri)
         o_def, o_sig, _ = _tree_sig(out)

@@ -17,27 +17,37 @@ card, the transport copies each collective's operand to host memory and
 the delivered buffer back (:meth:`ShardMesh.to_wire` /
 :meth:`ShardMesh.from_wire`), timed apart from the collectives.
 
-The rank entry runs a list of jobs (surveys, delta streams, exchanges)
-saved to a file, in S processes the parent starts and stops
-(:class:`RankRun`)::
+The rank entry runs jobs (surveys, delta streams, exchanges, resident
+graphs) in S long-lived processes, a :class:`RankPool`, that the parent
+starts and stops::
 
     python -m repro_torch.launch.mesh --rank R --world S \\
-        --init tcp://127.0.0.1:PORT --backend gloo [--device cpu] \\
-        --jobs JOBS.pt --out DIR
+        --init tcp://127.0.0.1:PORT --backend gloo [--device cpu]
 
-Each rank writes ``DIR/rank<R>.pt``: per job its outputs, wall, kernel
-launches, collective bytes per lane, collective and staging seconds and
-peak device memory; and the seconds from the parent's start to the end of
-its own set-up.
+Each rank reads one job at a time from its standard input and writes its
+record back (per job its outputs, wall, kernel launches, collective bytes
+per lane, collective and staging seconds and peak device memory), and
+keeps graphs resident under keys between jobs::
+
+    with RankPool(4, device="cpu") as pool:
+        pool.submit(dict(kind="load", key="g", gr=stacked_graph))
+        recs = pool.submit(dict(kind="run", key="g", survey=s, cfg=cfg))
+
+:class:`RankRun` runs a list of jobs on a pool while the caller works.
 """
 from __future__ import annotations
 
 import argparse
 import importlib
+import io
 import os
+import select
 import socket
+import struct
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -76,7 +86,8 @@ class ShardMesh:
     the device its shard lives on and the process group; ``counters``
     gather the bytes handed to the collectives per lane (``bytes``,
     ``calls``), the seconds in the collectives (``wire_s``) and in the
-    host staging copies (``stage_s``)."""
+    host staging copies (``stage_s``); ``graphs`` the graphs resident on
+    this rank between a :class:`RankPool`'s jobs, by key."""
 
     rank: int
     size: int
@@ -84,6 +95,7 @@ class ShardMesh:
     device: torch.device
     group: object = None
     counters: dict = field(default_factory=_new_counters)
+    graphs: dict = field(default_factory=dict)
 
     @property
     def staged(self) -> bool:
@@ -278,6 +290,16 @@ def _graph(spec, mesh: ShardMesh) -> ShardedDODGr:
     return spec
 
 
+def _rank_slice(gr: ShardedDODGr, mesh: ShardMesh) -> ShardedDODGr:
+    """This rank's slice of ``gr`` (the whole stack or the slice itself)
+    on the rank's device."""
+    if gr.row_ptr.shape[0] == gr.S:
+        return shard_slice(gr, mesh.rank, device=mesh.device)
+    return ShardedDODGr(**{f: getattr(gr, f) for f in META_FIELDS},
+                        **{f: getattr(gr, f).to(mesh.device)
+                           for f in PER_SHARD_FIELDS + REPLICATED_FIELDS})
+
+
 def _run_survey(job: dict, mesh: ShardMesh):
     gr = _graph(job["gr"], mesh)
     survey, cfg, entry = job["survey"], job["cfg"], job["entry"]
@@ -325,8 +347,44 @@ def _run_error(job: dict, mesh: ShardMesh):
     raise AssertionError("the job ran; it should have raised ValueError")
 
 
+def _run_load(job: dict, mesh: ShardMesh):
+    """Keep the job's graph (``gr`` as :func:`_graph` reads it) resident
+    under ``key``: this rank's slice, on its device."""
+    mesh.graphs[job["key"]] = _rank_slice(_graph(job["gr"], mesh), mesh)
+    return {}
+
+
+def _run_drop(job: dict, mesh: ShardMesh):
+    """Drop the resident graphs named in ``keys``."""
+    for key in job["keys"]:
+        del mesh.graphs[key]
+    return {}
+
+
+def _run_keys(job: dict, mesh: ShardMesh):
+    return dict(keys=sorted(mesh.graphs))
+
+
+def _run_raw(job: dict, mesh: ShardMesh):
+    """``make_survey_fn(survey, cfg)`` on the graph resident under
+    ``key``: the merged state (not finalized) and the stats."""
+    run = engine.make_survey_fn(job["survey"], job["cfg"], mesh=mesh)
+    state, stats = run(mesh.graphs[job["key"]])
+    return dict(state=state, stats=stats)
+
+
+def _run_wait(job: dict, mesh: ShardMesh):
+    """Hold the rank ``seconds``, then meet the others at a barrier: a
+    probe of the ranks' liveness (and of a rank lost mid-job)."""
+    time.sleep(job["seconds"])
+    dist.barrier(group=mesh.group)
+    return {}
+
+
 JOB_KINDS = {"survey": _run_survey, "delta": _run_delta,
-             "exchange": _run_exchange, "error": _run_error}
+             "exchange": _run_exchange, "error": _run_error,
+             "load": _run_load, "drop": _run_drop, "keys": _run_keys,
+             "run": _run_raw, "wait": _run_wait}
 
 
 def run_job(job: dict, mesh: ShardMesh) -> dict:
@@ -363,6 +421,50 @@ def run_job(job: dict, mesh: ShardMesh) -> dict:
     return out
 
 
+# the pool's pipes: each message one torch.save blob after its length
+
+
+def _encode(obj) -> bytes:
+    buf = io.BytesIO()
+    torch.save(obj, buf)
+    return struct.pack("<Q", buf.tell()) + buf.getvalue()
+
+
+def _decode(blob) -> object:
+    return torch.load(io.BytesIO(blob), map_location="cpu",
+                      weights_only=False)
+
+
+def _send(proc, data: bytes) -> None:
+    """All of ``data`` to the standard input of ``proc``."""
+    view, fd = memoryview(data), proc.stdin.fileno()
+    while view:
+        view = view[os.write(fd, view):]
+
+
+def _read_message(f):
+    """The next message on the binary stream ``f``; None at its end."""
+    head = f.read(8)
+    if len(head) < 8:
+        return None
+    (n,) = struct.unpack("<Q", head)
+    return _decode(f.read(n))
+
+
+def _serve(mesh: ShardMesh, ready: dict, out) -> None:
+    """A rank's loop: its set-up record, then jobs from standard input and
+    records to ``out``, until a ``stop`` job or the end of the input."""
+    jobs = sys.stdin.buffer
+    out.write(_encode(ready))
+    out.flush()
+    while True:
+        job = _read_message(jobs)
+        if job is None or job["kind"] == "stop":
+            return
+        out.write(_encode(run_job(job, mesh)))
+        out.flush()
+
+
 def rank_main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rank", type=int, required=True)
@@ -370,14 +472,16 @@ def rank_main(argv=None) -> int:
     ap.add_argument("--init", required=True)
     ap.add_argument("--backend", default="gloo")
     ap.add_argument("--device", default=None)
-    ap.add_argument("--jobs", required=True)
-    ap.add_argument("--out", required=True)
     ap.add_argument("--t0", type=float, default=None,
                     help="the parent's start time (time.time())")
     ap.add_argument("--timeout", type=float, default=600.0)
     a = ap.parse_args(argv)
     from datetime import timedelta
 
+    # records go to the standard output the rank started with; anything
+    # else printed goes to the log (the standard error)
+    out = os.fdopen(os.dup(1), "wb")
+    os.dup2(2, 1)
     # one intra-op thread: the ranks share the host's cores
     torch.set_num_threads(1)
     dist.init_process_group(a.backend, init_method=a.init, rank=a.rank,
@@ -385,13 +489,9 @@ def rank_main(argv=None) -> int:
                             timeout=timedelta(seconds=a.timeout))
     try:
         mesh = make_shard_mesh(a.world, a.backend, a.device)
-        ready_s = time.time() - a.t0 if a.t0 is not None else None
-        jobs = torch.load(a.jobs, map_location="cpu", weights_only=False)
-        outputs = [run_job(job, mesh) for job in jobs]
-        torch.save(dict(rank=a.rank, ready_s=ready_s, backend=mesh.backend,
-                        device=str(mesh.device), outputs=outputs),
-                   Path(a.out) / f"rank{a.rank}.pt")
-        dist.barrier()
+        _serve(mesh, dict(
+            rank=a.rank, backend=mesh.backend, device=str(mesh.device),
+            ready_s=time.time() - a.t0 if a.t0 is not None else None), out)
     finally:
         dist.destroy_process_group()
     return 0
@@ -408,90 +508,235 @@ def free_port() -> int:
 
 
 class RankRun:
-    """``S`` rank processes of this interpreter running ``jobs`` (see
-    :data:`JOB_KINDS`) over ``backend``, each rank's shard on ``device``
-    (``None``: the card, ``cuda:rank % cards``). :meth:`start` returns at
-    once, so the caller can work while the ranks run; :meth:`wait`
-    returns each rank's record, in rank order (``outputs``: one dict per
-    job; ``ready_s``: seconds from the start to the end of the rank's
-    set-up). Every process is stopped before :meth:`wait` returns; a rank
-    that fails or outlasts ``timeout`` seconds raises with the ranks'
-    output."""
+    """``jobs`` (see :data:`JOB_KINDS`) on a :class:`RankPool` of ``S``
+    ranks over ``backend``, each rank's shard on ``device`` (``None``: the
+    card, ``cuda:rank % cards``). :meth:`start` returns at once (a thread
+    submits the jobs in turn), so the caller can work while the ranks
+    run; :meth:`wait` stops the ranks and returns each rank's record, in
+    rank order (``outputs``: one dict per job; ``ready_s``: seconds from
+    the start to the end of the rank's set-up). A rank that fails or
+    outlasts ``timeout`` seconds on a job raises with the ranks' logs
+    (``workdir/rank<r>.log``); ``nccl`` with fewer cards than ranks
+    raises at :meth:`start`."""
 
     def __init__(self, S: int, jobs: list, workdir, backend: str = "gloo",
                  device: str | None = None, timeout: float = 600.0):
+        self.S, self.jobs, self.backend = S, jobs, backend
+        self.device, self.timeout = device, timeout
+        self.workdir = Path(workdir)
+
+    def start(self) -> "RankRun":
+        self.pool = RankPool(self.S, self.backend, self.device, self.timeout,
+                             self.workdir)
+        self._outputs: list = []
+        self._error: BaseException | None = None
+
+        def submit_all():
+            try:
+                for job in self.jobs:
+                    self._outputs.append(self.pool.submit(job))
+            except Exception as e:   # re-raised by wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=submit_all, daemon=True)
+        self._thread.start()
+        return self
+
+    def wait(self) -> list[dict]:
+        self._thread.join()
+        ranks = self.pool.ranks
+        self.pool.close()
+        if self._error is not None:
+            raise self._error
+        return [dict(ranks[r], outputs=[out[r] for out in self._outputs])
+                for r in range(self.S)]
+
+
+class RankPool:
+    """``S`` long-lived rank processes of this interpreter over ``backend``,
+    each rank's shard on ``device`` (``None``: the card, ``cuda:rank %
+    cards``), that run one job at a time (see :data:`JOB_KINDS`) and keep
+    graphs resident between jobs (kinds ``load``, ``drop``, ``keys``; a
+    ``run`` names a resident graph).
+
+    The ranks start at once; :meth:`ready` waits for their set-up (the
+    first :meth:`submit` waits for it too), so the caller can work
+    meanwhile. :meth:`submit` sends every rank the same job (or rank r
+    the r-th of a list), waits for every rank's record and returns them
+    in rank order. Every rank runs the same jobs in the same order, or
+    their collectives would not match: one job is in flight at a time,
+    whichever thread submits it.
+
+    A rank that exits, fails or outlasts ``timeout`` seconds on a job (or
+    on its set-up) stops every rank and raises with the ranks' logs
+    (``workdir/rank<r>.log``; ``None``: a new temporary directory); the
+    pool stays broken, and every later call raises. :meth:`close` (or
+    leaving the context) stops the ranks. ``jobs_sent`` counts the jobs
+    submitted; with ``log`` set to a list, each job (rank 0's, less its
+    graph) is appended to it with the ranks' records."""
+
+    def __init__(self, S: int, backend: str = "gloo", device=None,
+                 timeout: float = 600.0, workdir=None):
         if backend == "nccl":
             cards = (torch.cuda.device_count() if torch.cuda.is_available()
                      else 0)
             if cards < S:
                 raise ValueError(f"nccl needs one card per rank: {S} ranks, "
                                  f"{cards} card(s); use backend='gloo'")
-        self.S, self.jobs, self.backend = S, jobs, backend
-        self.device, self.timeout = device, timeout
-        self.workdir = Path(workdir)
-        self.procs, self.logs = [], []
-
-    def start(self) -> "RankRun":
-        wd = self.workdir
-        wd.mkdir(parents=True, exist_ok=True)
-        for old in wd.glob("rank*.pt"):
-            old.unlink()
-        torch.save(self.jobs, wd / "jobs.pt")
-        env = dict(os.environ)
+        self.S, self.backend, self.device = S, backend, device
+        self.timeout = timeout
+        self.workdir = Path(workdir if workdir is not None
+                            else tempfile.mkdtemp(prefix="rankpool-"))
+        self.workdir.mkdir(parents=True, exist_ok=True)
+        self.jobs_sent, self.log = 0, None
+        self.ranks: list[dict] | None = None   # each rank's set-up record
+        self._lock = threading.Lock()
+        self._broken: str | None = None
+        self.procs, self._logs = [], []
+        self.t0 = time.time()
+        self._deadline = time.monotonic() + timeout
+        env = dict(os.environ, OMP_NUM_THREADS="1")
         env["PYTHONPATH"] = os.pathsep.join(
             [str(SRC)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
                           if p])
-        env["OMP_NUM_THREADS"] = "1"
-        self.t0 = time.time()
-        self.deadline = time.monotonic() + self.timeout
         init = f"tcp://127.0.0.1:{free_port()}"
         try:
-            for r in range(self.S):
+            for r in range(S):
                 cmd = [sys.executable, "-m", "repro_torch.launch.mesh",
-                       "--rank", str(r), "--world", str(self.S),
-                       "--init", init, "--backend", self.backend,
-                       "--jobs", str(wd / "jobs.pt"), "--out", str(wd),
-                       "--t0", repr(self.t0),
-                       "--timeout", str(self.timeout)]
-                if self.device is not None:
-                    cmd += ["--device", str(self.device)]
-                self.logs.append(open(wd / f"rank{r}.log", "w"))
+                       "--rank", str(r), "--world", str(S), "--init", init,
+                       "--backend", backend, "--t0", repr(self.t0),
+                       "--timeout", str(timeout)]
+                if device is not None:
+                    cmd += ["--device", str(device)]
+                self._logs.append(open(self.workdir / f"rank{r}.log", "w"))
                 self.procs.append(subprocess.Popen(
-                    cmd, env=env, stdout=self.logs[-1],
-                    stderr=subprocess.STDOUT))
+                    cmd, env=env, stdin=subprocess.PIPE,
+                    stdout=subprocess.PIPE, stderr=self._logs[-1], bufsize=0))
         except BaseException:
             self._stop()
             raise
+
+    def __enter__(self) -> "RankPool":
         return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
     def _stop(self) -> list:
         for p in self.procs:
             if p.poll() is None:
                 p.kill()
-            p.wait()
-        for f in self.logs:
+        codes = [p.wait() for p in self.procs]
+        for p in self.procs:
+            for f in (p.stdin, p.stdout):
+                if f is not None:
+                    f.close()
+        for f in self._logs:
             f.close()
-        return [p.returncode for p in self.procs]
+        return codes
 
-    def wait(self) -> list[dict]:
-        try:
-            while any(p.poll() is None for p in self.procs):
-                if any(p.poll() not in (None, 0) for p in self.procs):
-                    break
-                if time.monotonic() > self.deadline:
-                    break
-                time.sleep(0.05)
-        finally:
-            codes = self._stop()
-        if any(codes):
-            tails = "\n".join(
-                f"--- rank {r} (exit {c}) ---\n"
-                + (self.workdir / f"rank{r}.log").read_text()[-4000:]
-                for r, c in enumerate(codes) if c)
-            raise RuntimeError(f"mesh ranks failed or timed out after "
-                               f"{time.time() - self.t0:.1f} s:\n{tails}")
-        return [torch.load(self.workdir / f"rank{r}.pt", map_location="cpu",
-                           weights_only=False) for r in range(self.S)]
+    def _fail(self, what: str):
+        """Stop every rank, keep the pool broken, raise with the logs."""
+        codes = self._stop()
+        self._broken = (f"the rank pool failed {time.time() - self.t0:.1f} s "
+                        f"after its start: {what}")
+        raise RuntimeError(self._broken + "".join(
+            f"\n--- rank {r} (exit {c}) ---\n"
+            + (self.workdir / f"rank{r}.log").read_text()[-4000:]
+            for r, c in enumerate(codes)))
+
+    def _records(self, deadline: float, what: str) -> list:
+        """One message from every rank, in rank order, by ``deadline``."""
+        bufs = {r: bytearray() for r in range(self.S)}
+        out: list = [None] * self.S
+        fds = {p.stdout.fileno(): r for r, p in enumerate(self.procs)}
+        while fds:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                self._fail(f"{what}: no record from rank(s) "
+                           f"{sorted(fds.values())} within {self.timeout} s")
+            readable, _, _ = select.select(list(fds), [], [], min(left, 1.0))
+            for fd in readable:
+                r = fds[fd]
+                chunk = os.read(fd, 1 << 20)
+                if not chunk:
+                    self._fail(f"{what}: rank {r} exited "
+                               f"(code {self.procs[r].wait()})")
+                buf = bufs[r]
+                buf += chunk
+                if len(buf) >= 8:
+                    (n,) = struct.unpack("<Q", buf[:8])
+                    if len(buf) == 8 + n:
+                        out[r] = _decode(bytes(buf[8:]))
+                        del fds[fd]
+                    elif len(buf) > 8 + n:
+                        self._fail(f"{what}: rank {r} wrote past its record")
+        return out
+
+    def _check(self) -> None:
+        if self._broken is not None:
+            raise RuntimeError(self._broken)
+        if self.ranks is None:
+            self.ranks = self._records(self._deadline, "set-up")
+
+    def ready(self) -> list[dict]:
+        """Wait for the ranks' set-up: each rank's record (``rank``,
+        ``backend``, ``device``, ``ready_s``: seconds from the start)."""
+        with self._lock:
+            self._check()
+            return self.ranks
+
+    def submit(self, job) -> list[dict]:
+        """Run ``job`` (a dict for every rank, or a list of S dicts) on the
+        ranks: each rank's record (:func:`run_job`), in rank order."""
+        jobs = job if isinstance(job, list) else [job] * self.S
+        if len(jobs) != self.S:
+            raise ValueError(f"{len(jobs)} jobs for {self.S} ranks")
+        kind = jobs[0]["kind"]
+        with self._lock:
+            self._check()
+            deadline = time.monotonic() + self.timeout
+            blob = _encode(job) if isinstance(job, dict) else None
+            try:
+                for p, j in zip(self.procs, jobs):
+                    _send(p, blob if blob is not None else _encode(j))
+            except OSError as e:
+                self._fail(f"sending a {kind} job: {e}")
+            records = self._records(deadline, f"a {kind} job")
+            self.jobs_sent += 1
+            if self.log is not None:
+                self.log.append(({k: v for k, v in jobs[0].items()
+                                  if k != "gr"}, records))
+            return records
+
+    def keys(self) -> list:
+        """The keys of the graphs resident on the ranks (the same on each
+        rank, or this raises)."""
+        keys = [r["keys"] for r in self.submit(dict(kind="keys"))]
+        if any(k != keys[0] for k in keys):
+            raise RuntimeError(f"the ranks hold different graphs: {keys}")
+        return keys[0]
+
+    def close(self) -> None:
+        """Stop every rank (idempotent)."""
+        with self._lock:
+            if self._broken is not None:
+                return
+            self._broken = "the rank pool is closed"
+            stop = _encode(dict(kind="stop"))
+            for p in self.procs:
+                try:
+                    _send(p, stop)
+                    p.stdin.close()
+                except OSError:
+                    pass
+            deadline = time.monotonic() + 30
+            for p in self.procs:
+                try:
+                    p.wait(timeout=max(0.0, deadline - time.monotonic()))
+                except subprocess.TimeoutExpired:
+                    pass
+            self._stop()
 
 
 if __name__ == "__main__":

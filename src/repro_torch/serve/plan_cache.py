@@ -4,8 +4,8 @@ A :class:`CacheEntry` bundles everything the engine needs to answer one
 survey against one graph epoch: the planned
 :class:`~repro_torch.core.engine.EngineConfig` and its
 :class:`~repro_torch.core.pushpull.VolumeReport`, the sharded graph
-(``ShardedDODGr``, hub tables included, on the service's device), the
-survey function, and the raw ``(merged_state, stats)`` of the warm-up
+(``ShardedDODGr``, hub tables included, on the service's device, or on
+the host under a mesh), the survey function, and the raw ``(merged_state, stats)`` of the warm-up
 traversal, so an exact repeat query is answered by finalizing alone.
 
 Keys are :func:`repro_torch.core.pushpull.plan_content_key` digests: any
@@ -91,10 +91,14 @@ class PlanCache:
     """LRU plan cache with byte-budget eviction.
 
     Thread-safe: query threads look plans up while the ingest worker
-    inserts."""
+    inserts. ``on_evict`` is called with the entries that eviction,
+    :meth:`invalidate` or :meth:`clear` removed (outside the cache's
+    lock)."""
 
-    def __init__(self, byte_budget: int | None = None):
+    def __init__(self, byte_budget: int | None = None,
+                 on_evict: Callable[[list], None] | None = None):
         self.byte_budget = byte_budget
+        self.on_evict = on_evict
         self._entries: OrderedDict[str, CacheEntry] = OrderedDict()
         self._lock = threading.Lock()
         self._stats = CacheStats()
@@ -119,28 +123,39 @@ class PlanCache:
         with self._lock:
             self._entries[entry.key] = entry
             self._entries.move_to_end(entry.key)
-            self._evict_locked(keep=entry.key)
-            return entry
+            gone = self._evict_locked(keep=entry.key)
+        self._removed(gone)
+        return entry
 
     def invalidate(self, key: str) -> bool:
         with self._lock:
-            return self._entries.pop(key, None) is not None
+            entry = self._entries.pop(key, None)
+        self._removed([entry] if entry is not None else [])
+        return entry is not None
 
     def clear(self) -> None:
         with self._lock:
+            gone = list(self._entries.values())
             self._entries.clear()
+        self._removed(gone)
 
-    def _evict_locked(self, keep: str | None = None) -> None:
+    def _removed(self, entries: list) -> None:
+        if entries and self.on_evict is not None:
+            self.on_evict(entries)
+
+    def _evict_locked(self, keep: str | None = None) -> list:
+        gone: list = []
         if self.byte_budget is None:
-            return
+            return gone
         while self.nbytes_locked() > self.byte_budget and len(self._entries) > 1:
             oldest = next(iter(self._entries))
             if oldest == keep:
                 # the newest entry alone exceeds the budget: keep it until
                 # the next insert
                 break
-            self._entries.pop(oldest)
+            gone.append(self._entries.pop(oldest))
             self._stats.evictions += 1
+        return gone
 
     def nbytes_locked(self) -> int:
         return sum(e.nbytes for e in self._entries.values())
@@ -298,13 +313,15 @@ def save_plan_cache(path, cache: PlanCache) -> int:
 
 
 def load_plan_cache(path, into: PlanCache | None = None,
-                    device=None) -> list[CacheEntry]:
+                    device=None, gr_device=None) -> list[CacheEntry]:
     """Rebuild the :class:`CacheEntry` objects of a file written by
     :func:`save_plan_cache` of either package, their tensors on
-    ``device`` (``None``: the card, as ``resolve_device``); ``fn`` and
-    ``survey`` are ``None``. ``into`` also inserts each entry into a
-    cache, oldest first, so LRU order is kept. Returns the entries."""
+    ``device`` (``None``: the card, as ``resolve_device``), the shards on
+    ``gr_device`` where given; ``fn`` and ``survey`` are ``None``.
+    ``into`` also inserts each entry into a cache, oldest first, so LRU
+    order is kept. Returns the entries."""
     dev = resolve_device(device)
+    gr_dev = dev if gr_device is None else resolve_device(gr_device)
     out: list[CacheEntry] = []
     with np.load(path, allow_pickle=False) as z:
         manifest = json.loads(str(z["manifest"]))
@@ -318,7 +335,7 @@ def load_plan_cache(path, into: PlanCache | None = None,
                 cfg_d[f] = _tuplify(cfg_d.get(f))
             gr = dodgr_from_arrays(
                 {f: z[name] for f, name in m["gr_arrays"].items()},
-                {f: m["gr_meta"][f] for f in META_FIELDS}, dev)
+                {f: m["gr_meta"][f] for f in META_FIELDS}, gr_dev)
             raw = (None if m["raw"] is None else
                    _raw_from_file(_decode_tree(m["raw"], z, dev)))
             entry = CacheEntry(

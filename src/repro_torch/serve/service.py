@@ -29,13 +29,23 @@ one-shot pipeline across requests and epochs:
 * **tenants** coalesce: :meth:`SurveyService.query_coalesced` folds many
   tenants' surveys into one traversal via :mod:`repro_torch.serve.coalesce`.
 
+* **the mesh**: ``mesh=`` a :class:`~repro_torch.launch.mesh.RankPool`
+  of S ranks runs every traversal one shard per rank. The parent plans
+  and shards (its stacked copy stays on the host), each entry's slices
+  stay resident on the ranks under the entry's content key while the plan
+  cache holds it, and an epoch's slices for its one traversal.
+
 Every path is bitwise the one-shot ``survey_*`` calls with
 ``orient="stable"`` (the orientation the service fixes so delta epochs
 and hub-table reuse stay exact), and bitwise the JAX package's service.
-Shards, memoized states and resident states stay on the service's device.
+Shards, memoized states and resident states stay on the service's device
+(the shards on the host, under a mesh).
 """
 from __future__ import annotations
 
+import contextlib
+import functools
+import itertools
 import os
 import threading
 import time
@@ -48,16 +58,17 @@ import numpy as np
 from repro_torch.core import engine
 from repro_torch.core.dodgr import (META_FIELDS, PER_SHARD_FIELDS,
                                     REPLICATED_FIELDS, HubTableCache,
-                                    shard_delta, shard_dodgr)
+                                    shard_delta, shard_dodgr, shard_slice)
 from repro_torch.core.engine import (finalize_epochs, make_survey_fn,
                                      survey_with_fn)
 from repro_torch.core.pushpull import (delta_token, graph_token,
                                        plan_content_key, plan_delta,
                                        plan_engine, survey_fingerprint)
-from repro_torch.core.surveys import Survey, SurveyBundle
+from repro_torch.core.surveys import Survey, SurveyBundle, tree_map
 from repro_torch.graphs import io as gio
 from repro_torch.graphs.csr import DeltaGraph, HostGraph
 from repro_torch.kernels import _cuda
+from repro_torch.launch.mesh import RankPool
 from repro_torch.serve.coalesce import (TenantRequest, coalesce, extract,
                                         warn_if_order_sensitive)
 from repro_torch.serve.ingest import IngestPipeline
@@ -73,6 +84,10 @@ def enable_persistent_compilation_cache(cache_dir) -> bool:
     disk instead of building them. Returns True."""
     _cuda.BUILD_ROOT = Path(cache_dir)
     return True
+
+
+# each service's graphs on a rank pool are keyed (its number, key)
+_SERVICE_NUMBERS = itertools.count()
 
 
 def _graph_signature(gr) -> tuple:
@@ -117,9 +132,18 @@ class SurveyService:
 
     ``device=None`` is the card, and raises without one (as
     :func:`~repro_torch.utils.resolve_device`); pass ``device="cpu"`` for
-    the plain path. ``mesh`` is kept for parity: a service over the mesh
-    transport (one shard per ``torch.distributed`` rank) is not ported
-    and a mesh raises. The service fixes ``orient="stable"``.
+    the plain path. The service fixes ``orient="stable"``.
+
+    ``mesh`` is a :class:`~repro_torch.launch.mesh.RankPool` of ``S`` ranks
+    (where the JAX package takes a device mesh): every traversal runs one
+    shard per rank, on any transport's plan (a dense plan on uniform caps,
+    a ragged or mesh plan on its per-pair caps), with the answers,
+    states, tokens and cache counters of the service without one (the
+    stats summed per rank, then in rank order). The ranks keep each plan
+    cache entry's slices under ``(mesh_ns, content key)`` while the cache
+    holds the entry (restored entries from their first traversal on); a
+    memo hit sends the pool no job. The caller owns the pool: it may
+    serve several services, and :meth:`close` leaves it running.
     """
 
     def __init__(self, graph: HostGraph, S: int, *,
@@ -142,11 +166,14 @@ class SurveyService:
                  preload_plans: Sequence[CacheEntry] | None = None,
                  compile_cache_dir=None,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "SurveyService(mesh=) — a service whose surveys run one shard "
-                "per torch.distributed rank — is not ported yet; see "
-                "ROADMAP.md, Queue 1 item 8")
+        if mesh is not None and not isinstance(mesh, RankPool):
+            raise ValueError(
+                f"mesh= takes a launch.mesh.RankPool of S={S} ranks, not a "
+                f"{type(mesh).__name__}")
+        if mesh is not None and mesh.S != int(S):
+            raise ValueError(
+                f"mesh has {mesh.S} rank(s) but the service runs S={S} "
+                f"shards; start a RankPool({S})")
         self.device = resolve_device(device)
         if sample_p < 1.0 and resident:
             raise ValueError("resident surveys ride the delta engine, which "
@@ -172,7 +199,12 @@ class SurveyService:
         # share one shape signature; results are bitwise "exact"'s
         self.cap_policy = cap_policy
         self._mesh = mesh
-        self.cache = PlanCache(cache_bytes)
+        # under a mesh: the keys whose slices the ranks hold, and the lock
+        # that keeps them equal to the cache's keys across threads
+        self.mesh_ns = next(_SERVICE_NUMBERS)
+        self._on_ranks: set = set()
+        self._ranks_lock = threading.RLock()
+        self.cache = PlanCache(cache_bytes, on_evict=self._evicted)
         self._jit_cache: dict = {}
         self._jit_lock = threading.Lock()
         self._compiled: set = set()    # (function key, graph signature) seen
@@ -189,6 +221,7 @@ class SurveyService:
         if preload_plans:
             for entry in preload_plans:
                 self.cache.insert(entry)
+        self._shard_device = "cpu" if mesh is not None else self.device
 
         self._resident = (SurveyBundle(list(resident.values()),
                                        names=list(resident.keys()))
@@ -241,9 +274,12 @@ class SurveyService:
             fn = self._jit_cache.get(jkey)
         if fn is not None:
             return fn
-        run = make_survey_fn(survey, cfg, mesh=self._mesh)
+        run = (make_survey_fn(survey, cfg) if self._mesh is None
+               else self._on_pool(survey, cfg))
 
-        def fn(gr, _jkey=jkey, _run=run):
+        def fn(gr, key=None, _jkey=jkey, _run=run):
+            """``gr``'s merged state and stats; under a mesh, the ranks'
+            traversal of the graph resident under ``key``."""
             gr0 = replace(gr, epoch=0)
             sig = (_jkey, _graph_signature(gr0))
             with self._jit_lock:
@@ -252,11 +288,66 @@ class SurveyService:
                 else:
                     self._compiled.add(sig)
                     self._jit_recompiles += 1
-            return _run(gr0)
+            return _run(gr0) if self._mesh is None else _run(key)
 
         with self._jit_lock:
             self._jit_cache.setdefault(jkey, fn)
             return self._jit_cache[jkey]
+
+    # -- the ranks' resident graphs (mesh) --------------------------------
+
+    def _on_pool(self, survey: Survey, cfg):
+        """The survey function on the rank pool: a ``run`` job naming the
+        resident graph; rank 0's merged state (every rank's is the same),
+        on the service's device, and its stats."""
+        def run(key):
+            rec = self._mesh.submit(dict(kind="run", key=(self.mesh_ns, key),
+                                         survey=survey, cfg=cfg))[0]
+            return (tree_map(lambda x: x.to(self.device), rec["state"]),
+                    rec["stats"])
+        return run
+
+    def _ranks(self):
+        """The lock around a traversal on the ranks and the loads and
+        drops beside it (none without a mesh)."""
+        return (self._ranks_lock if self._mesh is not None
+                else contextlib.nullcontext())
+
+    def _load(self, key: str, gr) -> None:
+        """Send each rank its slice of the host's ``gr``, resident under
+        ``key`` (once)."""
+        if self._mesh is None or key in self._on_ranks:
+            return
+        self._mesh.submit([dict(kind="load", key=(self.mesh_ns, key),
+                                gr=shard_slice(gr, r, device="cpu"))
+                           for r in range(self.S)])
+        self._on_ranks.add(key)
+
+    def _drop(self, keys) -> None:
+        keys = [k for k in keys if k in self._on_ranks]
+        if self._mesh is None or not keys:
+            return
+        self._mesh.submit(dict(kind="drop",
+                               keys=[(self.mesh_ns, k) for k in keys]))
+        self._on_ranks.difference_update(keys)
+
+    def _evicted(self, entries) -> None:
+        """The plan cache let ``entries`` go: so do the ranks."""
+        with self._ranks():
+            self._drop([e.key for e in entries])
+
+    def _traverse(self, entry: CacheEntry):
+        """``(result, stats)`` of a traversal of a cached entry's graph; on
+        a mesh its slices are loaded first where the ranks lack them
+        (a restored entry), and dropped after where the cache let the
+        entry go before the load."""
+        with self._ranks():
+            self._load(entry.key, entry.gr)
+            out = survey_with_fn(entry.gr, entry.survey, entry.cfg,
+                                 functools.partial(entry.fn, key=entry.key))
+            if entry.key not in self.cache:
+                self._drop([entry.key])
+        return out
 
     def _prepare(self, survey: Survey,
                  snap: Snapshot | None = None) -> tuple[CacheEntry, bool, float]:
@@ -285,13 +376,15 @@ class SurveyService:
             snap.union, self.S, sample_p=self.sample_p,
             sample_seed=self.sample_seed, orient="stable", epoch=snap.epoch,
             hub_theta=cfg.hub_theta, cap_policy=self.cap_policy,
-            device=self.device)
+            device=self._shard_device)
         fn = self._jit_for(survey, cfg)
-        raw = fn(gr)   # the warm-up traversal
-        entry = self.cache.insert(CacheEntry(
-            key=key, survey=survey, cfg=cfg, report=report, gr=gr, fn=fn,
-            raw=raw, nbytes=entry_nbytes(gr),
-            survey_fp=survey_fingerprint(survey)))
+        with self._ranks():
+            self._load(key, gr)
+            raw = fn(gr, key)   # the warm-up traversal
+            entry = self.cache.insert(CacheEntry(
+                key=key, survey=survey, cfg=cfg, report=report, gr=gr, fn=fn,
+                raw=raw, nbytes=entry_nbytes(gr),
+                survey_fp=survey_fingerprint(survey)))
         return entry, False, time.perf_counter() - t0
 
     def _annotate(self, stats: dict, *, hit: bool, setup_s: float,
@@ -315,8 +408,7 @@ class SurveyService:
         traversal; the same bits either way."""
         entry, hit, setup_s = self._prepare(survey, snap)
         if rerun or entry.raw is None:
-            result, stats = survey_with_fn(entry.gr, entry.survey,
-                                           entry.cfg, entry.fn)
+            result, stats = self._traverse(entry)
             served_from = "traversal"
         else:
             merged, dstats = entry.raw
@@ -403,13 +495,16 @@ class SurveyService:
                                   e_cap_floor=self._ecap_hw if bucket else 0,
                                   d_plus_max_floor=(self._dmax_hw
                                                     if bucket else 0),
-                                  device=self.device)
+                                  device=self._shard_device)
             if bucket:
                 self._ecap_hw = max(self._ecap_hw, gr_d.e_cap)
                 self._dmax_hw = max(self._dmax_hw, gr_d.d_plus_max)
             fn = self._jit_for(self._resident, cfg_d)
             engine._check_provenance(gr_d, cfg_d)
-            merged, dstats = fn(gr_d)
+            with self._ranks():   # the epoch's slices, for this traversal
+                self._load(token, gr_d)
+                merged, dstats = fn(gr_d, token)
+                self._drop([token])
             # guard before merging: an overflow in the delta fold would
             # undercount into every later resident answer
             engine._exactness_guard(cfg_d, dict(dstats))
@@ -473,18 +568,24 @@ class SurveyService:
         chain, and so every content key, continues, and the plan cache is
         preloaded from the ``.plans.npz`` sidecar where there is one (its
         tensors on ``device``), so the first query of a persisted question
-        answers from the memoized state."""
+        answers from the memoized state. Under a ``mesh`` the shards stay
+        on the host until an entry's first traversal loads its slices on
+        the ranks."""
         dg, token = gio.load_epoch_state(path)
         if "preload_plans" not in kwargs:
             pp = _plans_path(path)
             if os.path.exists(pp):
                 kwargs["preload_plans"] = load_plan_cache(
-                    pp, device=kwargs.get("device"))
+                    pp, device=kwargs.get("device"),
+                    gr_device=("cpu" if kwargs.get("mesh") is not None
+                               else None))
         return cls(dg.union(), S, token=token, epoch=dg.epoch, **kwargs)
 
     # -- lifecycle --------------------------------------------------------
 
     def close(self) -> None:
+        """Stop ingestion. A mesh's pool stays running: its caller
+        closes it."""
         self._ingest.close()
 
     def __enter__(self) -> "SurveyService":

@@ -239,3 +239,55 @@ def test_verdict_is_cached_per_survey(karate):
         assert pt_pp.plan_engine(karate[1], 2, survey)[0].determinism == \
             "order_sensitive"
     assert len(calls) == 1
+
+
+# folds whose output shape depends on the data: the reference's trace
+# refuses each, and so does the port's scan (ROADMAP Queue 3 (m))
+def _plus_sum(ref_select, pt_select):
+    """The reference's fold and the port's: the state plus the sum of a
+    selection, cast to float32 by a tensor operation (no coercion)."""
+    return (lambda st, tri: st + ref_select(tri).sum().astype(jnp.float32),
+            lambda st, tri: st + pt_select(tri).sum().float())
+
+
+# each fold's shape (or the positions it writes) is decided by the data
+DYNAMIC_FOLDS = {
+    "nonzero": _plus_sum(lambda tri: jnp.nonzero(tri.valid)[0],
+                         lambda tri: tri.valid.nonzero()),
+    "bool_mask": _plus_sum(lambda tri: tri.p[tri.valid],
+                           lambda tri: tri.p[tri.valid]),
+    "masked_select": _plus_sum(
+        lambda tri: jnp.extract(tri.valid, tri.p),
+        lambda tri: torch.masked_select(tri.p, tri.valid)),
+    "unique": _plus_sum(lambda tri: jnp.unique(tri.p),
+                        lambda tri: torch.unique(tri.p)),
+    "bool_mask_assign": (
+        lambda st, tri: st.at[tri.valid[:8]].set(1.0),
+        lambda st, tri: st.index_put((tri.valid[:8],), torch.tensor(1.0))),
+}
+
+
+@pytest.mark.parametrize("fold", sorted(DYNAMIC_FOLDS))
+def test_data_dependent_shape_is_not_traceable_in_both(fold):
+    """fold-not-traceable from check_fold_contract and unknown from
+    classify_determinism, in both packages."""
+    ref_fold, pt_fold = DYNAMIC_FOLDS[fold]
+    for ct, survey in ((ref_ct, _with_update(RefTable, ref_fold)),
+                       (pt_ct, _with_update(PtTable, pt_fold))):
+        codes = [v.code for v in ct.check_fold_contract(survey)]
+        assert codes == ["fold-not-traceable"], (ct.__name__, codes)
+        assert ct.classify_determinism(survey)[0] == "unknown", ct.__name__
+
+
+def test_integer_gather_in_a_user_fold_stays_bitwise(karate):
+    """An integer-index gather has its index's shape: it passes in both,
+    and so does a fold that reads the batch's valid-lane index."""
+    ref = _with_update(RefTable, lambda st, tri: st[tri.p[:8] % 8] + 1.0)
+    port = _with_update(PtTable,
+                        lambda st, tri: st[(tri.p[:8] % 8).long()] + 1.0)
+    assert ref_ct.check_fold_contract(ref) == []
+    assert pt_ct.check_fold_contract(port) == []
+    assert stamps(karate, ref, port) == ("bitwise", "bitwise")
+    valid = _with_update(PtTable, lambda st, tri: st.index_put(
+        ((tri.p[tri.valid_index] % 8).long(),), torch.tensor(1.0)))
+    assert pt_ct.classify_determinism(valid) == ("bitwise", [])

@@ -112,7 +112,8 @@ def test_unported_paths_raise_and_name_the_roadmap():
     until they were ported, now run or plan: a mesh plan stamps the
     reference's round schedule and, off a mesh, raises the reference's
     guard; a mesh whose size is not S raises. The service over a mesh is
-    not ported and still names the roadmap."""
+    ported: it takes a RankPool (tests/test_torch_serve_mesh.py), and a
+    rank's ShardMesh raises."""
     g = pt_gen.rmat(7, 8, seed=1).with_degree_meta()
     tc = pt_sv.TriangleCount()
     gr_hub, _ = pt_dodgr.shard_dodgr(g, 2, hub_theta=10, device="cpu")
@@ -138,7 +139,7 @@ def test_unported_paths_raise_and_name_the_roadmap():
     four = ShardMesh(rank=0, size=4, backend="gloo", device=torch.device("cpu"))
     with pytest.raises(ValueError, match="S=2 shards"):
         pt_engine.survey_push_pull(gr, tc, cfg_m, mesh=four)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="RankPool of S=2 ranks"):
         SurveyService(g, 2, mesh=four, device="cpu")
     dg = g.append_edges([0], [1])
     cfg_d, _ = pt_pp.plan_delta(dg, 2, tc)
