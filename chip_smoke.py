@@ -88,11 +88,22 @@ Phases (every failure ends the run with a non-zero exit):
    (``repro_torch.roofline.reconcile_collectives``); every kernel
    launched in the ranks. Over nccl too, one rank per card, where there
    are four cards (otherwise one line says it was not run).
-5. ``full``    — Graph500 R-MAT (a=0.57, b=0.19, c=0.19), scale 18, edge
+5. ``examples`` — the port's seven examples (``repro_torch.examples``:
+   quickstart, closure, label, multi, hub, streaming and the GNN loop) at
+   their own sizes on the card, each through ``main(device=...)``; what
+   each prints and returns is held to its JAX twin's recorded lines
+   (``repro_torch.examples.expected.check``): the six survey examples line
+   for line, the GNN example's survey line exactly, the losses of its
+   first training steps within ``expected.LOSS_TOL`` of the twin's,
+   finite losses that fall and a positive triangle-feature gain (its
+   training is chaotic past those steps; its final numbers, its gap to
+   the twin at every step and the first step where the gap passes
+   ``LOSS_TOL`` are printed). Each example's wall.
+6. ``full``    — Graph500 R-MAT (a=0.57, b=0.19, c=0.19), scale 18, edge
    factor 16, seed 0; S=8 logical shards on the card, dense transport,
    ``plan_engine(..., push_cap=4096, pull_q_cap=16)``, through the user
    entry points (``shard_dodgr`` → ``plan_engine`` → ``survey_push_only``
-   / ``survey_push_pull``). Eight paths, each with the launch counts set
+   / ``survey_push_pull``). Nine paths, each with the launch counts set
    to 0 just before it and read just after (paths g and h: in each rank):
 
    a. the first slice's: degree metadata; TriangleCount and
@@ -173,6 +184,24 @@ Phases (every failure ends the run with a non-zero exit):
       end. Each request's wall, the pool's ready seconds, the slowest
       rank's collective and staging seconds per traversal, the largest
       rank's peak and the launches over the ranks.
+   i. the paper's downstream loop (its §1: triangle counts as features
+      for a GNN) at full width: ``repro_torch.examples.
+      triangle_features_gnn.run`` on path a's graph and shards — a
+      push-pull LocalVertexCount survey (path a's plan parameters) whose
+      counts equal path b's bundle member bit for bit, then SchNet at
+      ``configs/schnet.py``'s published widths (3 interactions, 64 wide,
+      300 Gaussian bases, cutoff 10; 2 or 3 node features, 2 classes)
+      trained full batch over all 7,611,176 directed edges by the port's
+      ``adamw(5e-3)`` and ``make_train_step``, ``DOWNSTREAM_STEPS`` steps
+      on degree features and as many with the triangle feature. Losses
+      finite and falling (the median of the last ten steps' below the
+      first's). The first step with the triangle feature is held to
+      float64 on the card (``downstream_witness``): its loss, its
+      gradient against float64 central differences of the loss along
+      two directions (the trainer's ``grad_norm`` among them), and its
+      AdamW update against AdamW restated in float64. The survey's wall,
+      each step's wall, the peak device memory, both runs' losses and
+      accuracies.
 
    Every run is exact and every kernel of a path launched on it. Every
    plan a path runs is audited by ``repro_torch.analysis.check_plan``
@@ -189,7 +218,7 @@ Phases (every failure ends the run with a non-zero exit):
    equal ``fold_count_max``. On path a, fold_count_max's launches are
    counted by batch size in power-of-two bins, and the first call in the
    bin with the most launches is kept (on the host) as its typical fold.
-6. ``timing`` — the time of each kernel at those captured shapes
+7. ``timing`` — the time of each kernel at those captured shapes
    (median of CUDA-event times), its plain version's, its bound, a library call's where one
    computes the same function, and one ``kernels`` JSON line; hist_add and
    hist_max have a row for each caller's modal fold (the first call in
@@ -202,7 +231,7 @@ Phases (every failure ends the run with a non-zero exit):
    wedge_intersect at rank 0's largest launch on path g, with path g's
    launches; fold_count_max on path a's largest fold with rows of 16
    words (no real call); every row with the kernel's launches on each
-   path a–h. On lines before the
+   path a–i. On lines before the
    JSON: wedge_intersect at the fullest and at the last pull superstep,
    the fold_count_max launch bins, and the same measures of
    fold_count_max at its typical fold.
@@ -294,10 +323,12 @@ PATH_KERNELS = {
     "served": ("wedge_check", "fold_count_max", "hist_add"),
     "mesh": ("wedge_check", "wedge_intersect", "fold_count_max"),
     "served_mesh": ("wedge_check", "fold_count_max", "hist_add"),
+    "downstream": ("wedge_check", "wedge_intersect", "hist_add"),
 }
 # the letters PERF.md gives the full-size paths
 PATH_LETTERS = {"first": "a", "bundle": "b", "split": "c", "hub": "d",
-                "delta": "e", "served": "f", "mesh": "g", "served_mesh": "h"}
+                "delta": "e", "served": "f", "mesh": "g", "served_mesh": "h",
+                "downstream": "i"}
 REPORTED_PATH = {"wedge_check": "first", "wedge_intersect": "first",
                  "fold_count_max": "first", "ring_set": "bundle",
                  "hist_add": "bundle", "hist_max": "bundle",
@@ -2014,6 +2045,8 @@ def phase_full(torch, report, scale, dev):
     lane_rows += path_mesh(torch, dev, full, g, gr, expect, plans, reports,
                            results, launches)
     path_served_mesh(torch, dev, full, g_cut, MESH_FULL_S, f_out, launches)
+    path_downstream(torch, dev, full, g, gr, S, res_b["LocalVertexCount"],
+                    launches)
 
     # capture one superstep's inputs of each kernel: DegreeTriples and
     # Enumerate bundled on path a's graph run wedge_check, wedge_intersect,
@@ -2767,6 +2800,231 @@ def path_mesh(torch, dev, full, g, gr, expect, plans, reports, results,
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the examples phase and path i: the paper's downstream loop
+
+DOWNSTREAM_STEPS = 60     # training steps of each run on path i (the example's)
+
+
+def phase_examples(torch, report, dev):
+    """Each of the port's examples (``repro_torch.examples``) at its own
+    size on the card, its printed lines and numbers held to its JAX twin's
+    recorded lines (``repro_torch.examples.expected.check``: the survey
+    examples line for line; the GNN example's survey line, its first
+    training steps' losses within ``LOSS_TOL``, falling losses and a
+    positive gain)."""
+    import contextlib
+    import io
+
+    from repro_torch.examples import NAMES, expected
+
+    out = report["examples"] = {}
+    for name in NAMES:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        buf = io.StringIO()
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            numbers = mod.main(device=dev)
+        sync(torch, dev)
+        wall = time.perf_counter() - t0
+        errs = expected.check(name, buf.getvalue(), numbers)
+        require(not errs, f"example {name} differs from its twin: {errs}")
+        row = out[name] = dict(wall_s=wall,
+                               lines=len(buf.getvalue().splitlines()))
+        if name == expected.GNN:
+            row["drift"] = expected.gnn_drift(numbers)
+            row["step_gaps"] = [
+                [a - b for a, b in zip(numbers[r]["losses"], trace)]
+                for r, trace in zip(("base", "tri"), expected.GNN_STEP_LOSSES)]
+            row["first_steps_gap"] = [max(abs(x) for x in gaps[
+                :expected.TRACE_STEPS]) for gaps in row["step_gaps"]]
+            row["first_step_past_tol"] = expected.first_steps_past(numbers)
+        log(f"example {name}: {wall:.2f} s, {row['lines']} lines == the "
+            "twin's" + (f"; first {expected.TRACE_STEPS} step losses within "
+                        f"{row['first_steps_gap']} of the twin's, the gap "
+                        f"first past {expected.LOSS_TOL} at steps "
+                        f"{row['first_step_past_tol']}, finals "
+                        f"{json.dumps(row['drift'])}" if "drift" in row else ""))
+
+
+# path i's first training step held to float64 (downstream_witness)
+WITNESS_H = 1e-6           # central-difference step along a unit direction
+WITNESS_LOSS_RTOL = 1e-4   # float32 losses vs the float64 loss
+WITNESS_GRAD_RTOL = 1e-3   # directional derivatives, relative to |g|
+WITNESS_PARAM_ATOL = 1e-6  # AdamW's step vs its float64 restatement
+
+
+def downstream_witness(torch, dev, g, counts, cfg, first_loss) -> dict:
+    """Path i's first training step with the triangle feature (CONFIG
+    widths, full batch, the run's initial weights) against float64 on the
+    card, with the same weights and batch:
+    - loss: the trainer's float32 loss, and the first loss the run logged,
+      within ``WITNESS_LOSS_RTOL`` of the float64 loss;
+    - gradient: autograd's float32 gradient g (as the trainer hands it to
+      AdamW) against float64 central differences of the loss, a check
+      that does not go through autograd, along g/|g| and along a seeded
+      random unit direction, each within ``WITNESS_GRAD_RTOL`` × |g|;
+      along g/|g| the derivative is the trainer's ``grad_norm``;
+    - AdamW: the trainer's new weights within ``WITNESS_PARAM_ATOL`` of
+      AdamW restated here in float64 from g (global-norm clip at 1, b1
+      0.9, b2 0.999, eps 1e-8, both bias corrections, lr 5e-3)."""
+    from repro_torch.examples import triangle_features_gnn as tfg
+    from repro_torch.train import adamw, make_train_step
+    from repro_torch.train.optimizer import tree_leaves, tree_unflatten
+    from repro_torch.train.trainer import init_state
+
+    t0 = time.perf_counter()
+    _, feats, labels = tfg.features(g, np.asarray(counts, np.float32))
+    mc = tfg.model_cfg(cfg, feats.shape[1])
+    loss_fn = tfg.make_loss(mc, torch.as_tensor(labels, device=dev))
+    batch = tfg.make_graph(g, feats, dev)
+    p0 = tfg.init_weights(mc, dev)
+    seen = []
+
+    def capture(grads, ef):
+        seen.append(grads)
+        return grads, ef
+
+    opt = adamw(5e-3)
+    state, m = make_train_step(loss_fn, opt, grad_transform=capture)(
+        init_state(p0, opt), batch)
+    grads = [x.double() for x in tree_leaves(seen[0])]
+    step_loss, step_gn = float(m["loss"]), float(m["grad_norm"])
+    gn = float(torch.sqrt(sum((x * x).sum() for x in grads)))
+
+    w64 = [x.double() for x in tree_leaves(p0)]
+    b64 = dataclasses.replace(batch, node_feat=batch.node_feat.double(),
+                              positions=batch.positions.double())
+
+    @torch.no_grad()
+    def loss64(direction=None, h=0.0):
+        ws = w64 if direction is None else [
+            w + h * u for w, u in zip(w64, direction)]
+        return float(loss_fn(tree_unflatten(p0, ws), b64)[0])
+
+    gen = torch.Generator().manual_seed(0)
+    rand = [torch.randn(w.shape, generator=gen, dtype=torch.float64).to(dev)
+            for w in w64]
+    rn = float(torch.sqrt(sum((x * x).sum() for x in rand)))
+    dirs = dict(gradient=[x / gn for x in grads], random=[x / rn for x in rand])
+    ref = loss64()
+    derivs = {}
+    for name, u in dirs.items():
+        fd = (loss64(u, WITNESS_H) - loss64(u, -WITNESS_H)) / (2 * WITNESS_H)
+        ad = float(sum((x * y).sum() for x, y in zip(grads, u)))
+        derivs[name] = dict(autograd=ad, float64_difference=fd,
+                            rel_err=abs(fd - ad) / gn)
+
+    clip = min(1.0, 1.0 / max(gn, 1e-9))
+    worst = 0.0
+    for w, x, new in zip(w64, grads, tree_leaves(state.params)):
+        x = x * clip
+        mom, var = 0.1 * x, 0.001 * x * x
+        upd = (mom / 0.1) / (torch.sqrt(var / 0.001) + 1e-8)
+        worst = max(worst, float((new.double() - (w - 5e-3 * upd)).abs().max()))
+    out = dict(loss_float64=ref, step_loss=step_loss, first_loss=first_loss,
+               loss_rel_err=max(abs(step_loss - ref), abs(first_loss - ref))
+               / abs(ref),
+               grad_norm=step_gn, grad_norm_recomputed=gn, derivatives=derivs,
+               adamw_max_abs_err=worst, h=WITNESS_H, wall_s=None)
+    require(out["loss_rel_err"] <= WITNESS_LOSS_RTOL,
+            f"path i witness: float32 losses {step_loss}, {first_loss} vs "
+            f"float64 {ref}: {out['loss_rel_err']} > {WITNESS_LOSS_RTOL}")
+    require(abs(step_gn - gn) <= WITNESS_LOSS_RTOL * gn,
+            f"path i witness: grad_norm {step_gn} vs |g| {gn}")
+    for name, d in derivs.items():
+        require(d["rel_err"] <= WITNESS_GRAD_RTOL,
+                f"path i witness: derivative along the {name} direction: "
+                f"autograd {d['autograd']} vs float64 central difference "
+                f"{d['float64_difference']} (|g| {gn}) > {WITNESS_GRAD_RTOL}")
+    require(worst <= WITNESS_PARAM_ATOL,
+            f"path i witness: AdamW's step {worst} from its float64 "
+            f"restatement > {WITNESS_PARAM_ATOL}")
+    sync(torch, dev)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def path_downstream(torch, dev, full, g, gr, S, lvc_bundle, launches):
+    """Path i, the paper's downstream loop at full width: the GNN
+    example's ``run`` on path a's graph and shards — a push-pull
+    LocalVertexCount survey (path a's plan parameters) whose counts equal
+    path b's bundle member bit for bit, then SchNet at
+    ``configs/schnet.py``'s published widths (3 interactions, 64 wide, 300
+    Gaussian bases, cutoff 10; node features 2 and 3, two classes) trained
+    full batch over every directed edge by the port's AdamW, once on
+    degree features and once with the triangle feature. Losses finite and
+    falling (``expected.losses_fall``: the median of the last ten below
+    the first), and the first step with the triangle feature held to
+    float64 (``downstream_witness``); the survey's wall, each step's wall
+    and the peak."""
+    from repro_torch.configs import schnet as schnet_config
+    from repro_torch.examples import expected
+    from repro_torch.examples import triangle_features_gnn as tfg
+
+    base = memory_reset(torch, dev)
+    t0 = time.perf_counter()
+    out, launches["downstream"] = run_path(
+        torch, dev, "downstream",
+        lambda: tfg.run(g, S=S, cfg=schnet_config.CONFIG, gr=gr, device=dev,
+                        steps=DOWNSTREAM_STEPS, push_cap=4096, pull_q_cap=16))
+    wall = time.perf_counter() - t0
+    peak = peak_memory(torch, dev)
+    require(np.array_equal(np.asarray(out["counts"]), np.asarray(lvc_bundle)),
+            "path i's LocalVertexCount != path b's bundle member")
+    require(out["survey_stats"]["exact"], "path i's survey inexact")
+    runs = {}
+    for r in ("base", "tri"):
+        x = out[r]
+        require(all(np.isfinite(x["losses"])), f"path i {r}: a loss not finite")
+        require(expected.losses_fall(x["losses"]),
+                f"path i {r}: the last {expected.FALL_STEPS} step losses "
+                f"{x['losses'][-expected.FALL_STEPS:]} did not fall below "
+                f"the first step's {x['losses'][0]}")
+        steps = x["step_s"]
+        runs[r] = dict(first_loss=x["losses"][0], loss=x["loss"],
+                       last_median_loss=statistics.median(
+                           x["losses"][-expected.FALL_STEPS:]),
+                       losses=x["losses"],
+                       accuracy=x["accuracy"], first_step_s=steps[0],
+                       median_step_s=statistics.median(steps[1:] or steps),
+                       train_s=sum(steps))
+    memory_reset(torch, dev)
+    witness = downstream_witness(torch, dev, g, out["counts"],
+                                 schnet_config.CONFIG, out["tri"]["losses"][0])
+    witness["max_memory_allocated"] = peak_memory(torch, dev)
+    full["downstream"] = dict(
+        edges_directed=2 * g.m, vertices=g.n, steps=DOWNSTREAM_STEPS,
+        survey_s=out["survey_s"], wall_s=wall, resident_bytes=base,
+        max_memory_allocated=peak, runs=runs, gain=out["gain"],
+        witness=witness,
+        counts_sum=int(np.asarray(out["counts"]).astype(np.int64).sum()))
+    log(f"path i: LocalVertexCount push-pull {out['survey_s']:.2f} s == path "
+        f"b's bit for bit; SchNet 3x64, 300 bases over {2 * g.m} edges, "
+        f"{DOWNSTREAM_STEPS} steps a run: " + "; ".join(
+            f"{r} loss {v['first_loss']:.4f} -> {v['loss']:.4f} (median of "
+            f"the last {expected.FALL_STEPS} {v['last_median_loss']:.4f}), accuracy "
+            f"{v['accuracy']:.3f}, first step {v['first_step_s']:.3f} s, "
+            f"median {v['median_step_s']:.4f} s, {v['train_s']:.2f} s"
+            for r, v in runs.items())
+        + f"; gain {out['gain']:+.1f} points; path {wall:.2f} s; peak "
+        f"{peak / 2**30:.2f} GiB ({base / 2**30:.2f} resident before); "
+        f"launches {launches['downstream']}")
+    log("path i witness (first step with the triangle feature vs float64): "
+        f"loss {witness['loss_float64']:.6f}, float32 off by "
+        f"{witness['loss_rel_err']:.2e} (rtol {WITNESS_LOSS_RTOL}); grad_norm "
+        f"{witness['grad_norm']:.6g}; derivatives autograd vs float64 central "
+        "difference " + ", ".join(
+            f"{k} {d['autograd']:.6g} vs {d['float64_difference']:.6g} "
+            f"({d['rel_err']:.2e} of |g|)"
+            for k, d in witness["derivatives"].items())
+        + f" (rtol {WITNESS_GRAD_RTOL}); AdamW vs float64 "
+        f"{witness['adamw_max_abs_err']:.2e} (atol {WITNESS_PARAM_ATOL}); "
+        f"{witness['wall_s']:.2f} s, peak "
+        f"{witness['max_memory_allocated'] / 2**30:.2f} GiB")
+
+
 # the port's kernels as the profiler names them (fold_kernel: the fold body
 # of fold_count_max, hist_add and hist_max)
 PORT_KERNEL_NAMES = ("wedge_check", "wedge_intersect", "fold_kernel",
@@ -3123,6 +3381,7 @@ def main() -> int:
     phase("small_delta", phase_small_delta, dev)
     phase("small_serve", phase_small_serve, dev)
     phase("small_mesh", phase_small_mesh, dev)
+    phase("examples", phase_examples, dev)
     captured, launches, errs = phase("full", phase_full, FULL_SCALE, dev)
     kernels_line = {"kernels": phase("timing", phase_timing, captured,
                                      launches, errs)}

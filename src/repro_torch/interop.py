@@ -70,3 +70,38 @@ def state_to_numpy(state):
     if isinstance(state, (list, tuple)):
         return type(state)(state_to_numpy(v) for v in state)
     return state.detach().cpu().numpy()
+
+
+def _flatten_tree(tree, prefix: str = ""):
+    if isinstance(tree, dict):
+        for k in tree:
+            yield from _flatten_tree(tree[k], f"{prefix}{k}.")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _flatten_tree(v, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def schnet_params_from_jax(tree: dict, device) -> dict:
+    """The JAX package's SchNet parameter tree (nested dicts and lists of
+    numpy arrays, as ``jax.tree.map(np.asarray, params)`` gives it) as a
+    state dict for :class:`repro_torch.models.gnn.schnet.SchNet`
+    (``model.load_state_dict(...)``): each array copied, float32, on
+    ``device``, under its path in the tree (``blocks.0.filt1.w``)."""
+    return {name: torch.tensor(np.asarray(a, np.float32), device=device)
+            for name, a in _flatten_tree(tree)}
+
+
+def params_to_numpy(params):
+    """A parameter tree (nested dicts and lists of tensors, or a module
+    with a ``tree()`` such as ``SchNet``) as numpy, in the layout
+    ``jax.tree.map(np.asarray, params)`` gives the reference's — the
+    inverse of :func:`schnet_params_from_jax`, for comparing weights."""
+    if hasattr(params, "tree"):
+        params = params.tree()
+    if isinstance(params, dict):
+        return {k: params_to_numpy(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [params_to_numpy(v) for v in params]
+    return params.detach().cpu().numpy()
