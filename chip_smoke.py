@@ -103,7 +103,7 @@ Phases (every failure ends the run with a non-zero exit):
    factor 16, seed 0; S=8 logical shards on the card, dense transport,
    ``plan_engine(..., push_cap=4096, pull_q_cap=16)``, through the user
    entry points (``shard_dodgr`` → ``plan_engine`` → ``survey_push_only``
-   / ``survey_push_pull``). Nine paths, each with the launch counts set
+   / ``survey_push_pull``). Ten paths, each with the launch counts set
    to 0 just before it and read just after (paths g and h: in each rank):
 
    a. the first slice's: degree metadata; TriangleCount and
@@ -202,6 +202,20 @@ Phases (every failure ends the run with a non-zero exit):
       AdamW update against AdamW restated in float64. The survey's wall,
       each step's wall, the peak device memory, both runs' losses and
       accuracies.
+   j. the rest of the GNN zoo at its published widths (``path_zoo``):
+      DimeNet, NequIP and EquiformerV2 at ``configs/<arch>.py``'s CONFIG
+      on the JAX package's molecule cell (``launch.steps.GNN_CELL_DIMS``:
+      128 graphs, 3,840 atoms, 8,192 edge slots, graph energies): a
+      seeded ``radius_graph_batch`` (cutoff 5, box ``ZOO_BOX``: 75–100% of
+      the slots real, checked), DimeNet's triplets of its real edges under
+      the cell's cap of 32,768, weights from ``threefry.prng_key(1)``.
+      Graph energies in float32 within ``ZOO_RTOL`` of the same module in
+      float64 on the card, and of the energies of positions under a seeded
+      rotation; EquiformerV2 with ``edge_chunks = 8`` within it of 1; ten
+      AdamW(1e-3) steps of the energy loss through ``make_train_step``
+      (finite losses; the first and median step walls, the peak, model
+      TFLOP/s from ``launch.steps.gnn_flops``); one profiled step a model
+      (the device's idle share). It launches no kernel of ours (checked).
 
    Every run is exact and every kernel of a path launched on it. Every
    plan a path runs is audited by ``repro_torch.analysis.check_plan``
@@ -231,7 +245,7 @@ Phases (every failure ends the run with a non-zero exit):
    wedge_intersect at rank 0's largest launch on path g, with path g's
    launches; fold_count_max on path a's largest fold with rows of 16
    words (no real call); every row with the kernel's launches on each
-   path a–i. On lines before the
+   path a–j (path j: 0). On lines before the
    JSON: wedge_intersect at the fullest and at the last pull superstep,
    the fold_count_max launch bins, and the same measures of
    fold_count_max at its typical fold.
@@ -324,11 +338,12 @@ PATH_KERNELS = {
     "mesh": ("wedge_check", "wedge_intersect", "fold_count_max"),
     "served_mesh": ("wedge_check", "fold_count_max", "hist_add"),
     "downstream": ("wedge_check", "wedge_intersect", "hist_add"),
+    "zoo": (),
 }
 # the letters PERF.md gives the full-size paths
 PATH_LETTERS = {"first": "a", "bundle": "b", "split": "c", "hub": "d",
                 "delta": "e", "served": "f", "mesh": "g", "served_mesh": "h",
-                "downstream": "i"}
+                "downstream": "i", "zoo": "j"}
 REPORTED_PATH = {"wedge_check": "first", "wedge_intersect": "first",
                  "fold_count_max": "first", "ring_set": "bundle",
                  "hist_add": "bundle", "hist_max": "bundle",
@@ -2047,6 +2062,13 @@ def phase_full(torch, report, scale, dev):
     path_served_mesh(torch, dev, full, g_cut, MESH_FULL_S, f_out, launches)
     path_downstream(torch, dev, full, g, gr, S, res_b["LocalVertexCount"],
                     launches)
+    t0 = time.perf_counter()
+    _, launches["zoo"] = run_path(torch, dev, "zoo",
+                                  lambda: path_zoo(torch, dev, full))
+    full["zoo"]["wall_s"] = time.perf_counter() - t0
+    require(not any(launches["zoo"].values()),
+            f"path j launched a kernel of the survey path: {launches['zoo']}")
+    log(f"path j: {full['zoo']['wall_s']:.2f} s, no kernel of ours launched")
 
     # capture one superstep's inputs of each kernel: DegreeTriples and
     # Enumerate bundled on path a's graph run wedge_check, wedge_intersect,
@@ -3023,6 +3045,168 @@ def path_downstream(torch, dev, full, g, gr, S, lvc_bundle, launches):
         f"{witness['adamw_max_abs_err']:.2e} (atol {WITNESS_PARAM_ATOL}); "
         f"{witness['wall_s']:.2f} s, peak "
         f"{witness['max_memory_allocated'] / 2**30:.2f} GiB")
+
+
+# ---------------------------------------------------------------------------
+# path j: the rest of the GNN zoo at its published widths
+
+ZOO = (("dimenet", "DimeNet"), ("nequip", "NequIP"),
+       ("equiformer-v2", "EquiformerV2"))
+ZOO_SHAPE = "molecule"     # the JAX package's GNN_CELL_DIMS cell
+ZOO_BOX = 100.0            # box edge: 7,308 of the 8,192 edge slots real
+ZOO_STEPS = 10             # AdamW steps a model
+ZOO_CHUNKS = 8             # EquiformerV2's streaming attention, held to 1
+# graph energies: float32 vs float64, rotated vs not, 8 chunks vs 1; the
+# worst difference relative to the largest |energy| of the float64 run
+ZOO_RTOL = 1e-4
+
+
+def rotation(seed: int) -> np.ndarray:
+    """A seeded rotation, Rz(a) Ry(b) Rz(c)."""
+    a, b, c = np.random.default_rng(seed).uniform(0, 2 * np.pi, 3)
+    rz = lambda t: np.array([[np.cos(t), -np.sin(t), 0],
+                             [np.sin(t), np.cos(t), 0], [0, 0, 1]])
+    ry = lambda t: np.array([[np.cos(t), 0, np.sin(t)], [0, 1, 0],
+                             [-np.sin(t), 0, np.cos(t)]])
+    return rz(a) @ ry(b) @ rz(c)
+
+
+def zoo_batch(torch, dev, n_nodes, e_cap, n_graphs, t_cap, box):
+    """The molecule cell's batch: ``radius_graph_batch`` (seeded) and
+    DimeNet's triplets of its real edges (``build_triplets`` with the
+    cell's cap: more triplets than that raise, as in the reference), the
+    seeded graph energies."""
+    from repro_torch.models.gnn.common import build_triplets, radius_graph_batch
+
+    g = radius_graph_batch(torch.Generator().manual_seed(0), n_nodes,
+                           cutoff=5.0, box=box, e_cap=e_cap,
+                           n_graphs=n_graphs, device=dev)
+    n_real = int(g.edge_valid.sum())
+    require(0.75 * e_cap <= n_real <= e_cap,
+            f"path j: {n_real} real edges of {e_cap} slots, not 75-100%")
+    src, dst = (x[:n_real].cpu().numpy() for x in (g.edge_src, g.edge_dst))
+    require(bool(g.edge_valid[:n_real].all()), "path j: padding before edges")
+    tri = build_triplets(src, dst, n_nodes, t_cap)
+    labels = torch.tensor(np.random.default_rng(2).normal(size=n_graphs),
+                          dtype=torch.float32, device=dev)
+    return g, n_real, [torch.as_tensor(t, device=dev) for t in tri], labels
+
+
+def path_zoo(torch, dev, full, widths="CONFIG"):
+    """Path j: DimeNet, NequIP and EquiformerV2 at ``configs/<arch>.py``'s
+    CONFIG widths on the JAX package's molecule cell (128 graphs, 3,840
+    atoms, 8,192 edge slots, graph energies), weights from
+    ``threefry.prng_key(1)``:
+    - forward in float32 against the same module in float64, and against
+      positions under a seeded rotation (within ``ZOO_RTOL``);
+    - EquiformerV2 with ``edge_chunks = ZOO_CHUNKS`` against 1;
+    - ``ZOO_STEPS`` AdamW(1e-3) steps of the energy loss through
+      ``make_train_step``: finite losses, the first and the median step
+      wall, the peak, model TFLOP/s (``launch.steps.gnn_flops``);
+    - one profiled step a model (the device's idle share).
+    ``widths="SMOKE"`` narrows the models for a CPU rehearsal; the batch
+    stays the cell's."""
+    from repro_torch.launch.steps import gnn_cell
+    from repro_torch.models import threefry
+    from repro_torch.train import adamw, make_train_step
+    from repro_torch.train.optimizer import tree_map
+    from repro_torch.train.trainer import init_state
+
+    cells = {arch: gnn_cell(arch, ZOO_SHAPE, widths) for arch, _ in ZOO}
+    dims = cells["dimenet"].dims
+    n_nodes, box = dims["N_logical"], ZOO_BOX
+    t0 = time.perf_counter()
+    g, n_real, tri, labels = zoo_batch(
+        torch, dev, n_nodes, cells["dimenet"].e_pad, dims["n_graphs"],
+        cells["dimenet"].t_cap, box)
+    rot = torch.tensor(rotation(3), dtype=torch.float32, device=dev)
+    g_rot = dataclasses.replace(g, positions=g.positions @ rot.T)
+    g64 = dataclasses.replace(g, positions=g.positions.double())
+    out = full["zoo"] = dict(
+        shape=ZOO_SHAPE, widths=widths, nodes=n_nodes, graphs=dims["n_graphs"],
+        edge_slots=cells["dimenet"].e_pad, edges=n_real,
+        triplets=int(tri[2].sum()), t_cap=cells["dimenet"].t_cap, box=box,
+        batch_s=time.perf_counter() - t0, rtol=ZOO_RTOL, models={})
+    log(f"path j: molecule cell, {n_nodes} atoms in {dims['n_graphs']} "
+        f"graphs, box {box}, {n_real} real edges of {out['edge_slots']} slots "
+        f"({100 * n_real / out['edge_slots']:.1f}%), DimeNet {out['triplets']} "
+        f"triplets (cap {out['t_cap']}); batch {out['batch_s']:.2f} s")
+
+    def rel(a, b, ref):
+        return float((a.double() - b.double()).abs().max()
+                     / ref.double().abs().max())
+
+    for arch, cls in ZOO:
+        cell = cells[arch]
+        model = getattr(cell.module, cls)(cell.cfg, key=threefry.prng_key(1),
+                                          device=dev)
+        p32 = model.tree()
+        p64 = tree_map(lambda t: t.detach().double(), p32)
+        args = ((tri,) if arch == "dimenet" else ())
+
+        @torch.no_grad()
+        def energies(params, graph, cfg=cell.cfg):
+            return cell.module.forward(cfg, params, graph, *args)[1][:, 0]
+
+        e32, e64 = energies(p32, g), energies(p64, g64)
+        e_rot = energies(p32, g_rot)
+        row = out["models"][arch] = dict(
+            cfg=dataclasses.asdict(cell.cfg),
+            params=sum(p.numel() for p in model.parameters()),
+            float64_rel_err=rel(e32, e64, e64),
+            rotation_rel_err=rel(e_rot, e32, e64))
+        if arch == "equiformer-v2":
+            e_ch = energies(p32, g, dataclasses.replace(
+                cell.cfg, edge_chunks=ZOO_CHUNKS))
+            row["chunks"] = ZOO_CHUNKS
+            row["chunked_rel_err"] = rel(e_ch, e32, e64)
+        for k in ("float64_rel_err", "rotation_rel_err", "chunked_rel_err"):
+            require(k not in row or row[k] <= ZOO_RTOL,
+                    f"path j {arch}: {k} {row.get(k)} > {ZOO_RTOL}")
+        require(bool(torch.isfinite(e32).all()), f"path j {arch}: energies")
+
+        batch = dict(graph=g, labels=labels)
+        if arch == "dimenet":
+            batch.update(t_in=tri[0], t_out=tri[1], t_valid=tri[2])
+        opt = adamw(1e-3)
+        step = make_train_step(cell.loss_fn, opt)
+        state = init_state(tree_map(lambda t: t.detach().clone(), p32), opt)
+        base = memory_reset(torch, dev)
+        losses, walls = [], []
+        for _ in range(ZOO_STEPS):
+            sync(torch, dev)
+            t1 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            walls.append(time.perf_counter() - t1)
+        peak = peak_memory(torch, dev)
+        require(all(np.isfinite(losses)), f"path j {arch}: losses {losses}")
+        median = statistics.median(walls[1:])
+        row.update(losses=losses, first_step_s=walls[0], median_step_s=median,
+                   step_s=walls, resident_bytes=base,
+                   max_memory_allocated=peak,
+                   model_flops_step=cell.model_flops,
+                   tflops=cell.model_flops / median / 1e12)
+        if dev.type == "cuda":
+            st = [state]
+
+            def one():
+                st[0] = step(st[0], batch)[0]
+
+            row["profile"] = profile_run(torch, f"path j {arch} step", one,
+                                         top=8)
+        log(f"path j {arch}: {row['params']} parameters; energies float32 vs "
+            f"float64 {row['float64_rel_err']:.2e}, rotated "
+            f"{row['rotation_rel_err']:.2e}"
+            + (f", {ZOO_CHUNKS} chunks {row['chunked_rel_err']:.2e}"
+               if "chunks" in row else "")
+            + f" (rtol {ZOO_RTOL}); losses {losses[0]:.6g} -> "
+            f"{losses[-1]:.6g}; first step {walls[0]:.3f} s, median "
+            f"{median:.4f} s; peak {peak / 2**30:.2f} GiB ({base / 2**30:.2f} "
+            f"resident before); {row['tflops']:.3f} model TFLOP/s "
+            f"({cell.model_flops / 1e9:.2f} GFLOP a step)")
+        del model, state, p32, p64
+    return out
 
 
 # the port's kernels as the profiler names them (fold_kernel: the fold body

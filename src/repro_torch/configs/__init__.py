@@ -5,8 +5,11 @@ from __future__ import annotations
 import importlib
 
 ARCH_IDS = {
-    # GNN family
+    # GNN family (4)
+    "nequip": "nequip",
     "schnet": "schnet",
+    "dimenet": "dimenet",
+    "equiformer-v2": "equiformer_v2",
 }
 
 

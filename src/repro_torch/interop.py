@@ -83,21 +83,27 @@ def _flatten_tree(tree, prefix: str = ""):
         yield prefix[:-1], tree
 
 
-def schnet_params_from_jax(tree: dict, device) -> dict:
-    """The JAX package's SchNet parameter tree (nested dicts and lists of
-    numpy arrays, as ``jax.tree.map(np.asarray, params)`` gives it) as a
-    state dict for :class:`repro_torch.models.gnn.schnet.SchNet`
-    (``model.load_state_dict(...)``): each array copied, float32, on
-    ``device``, under its path in the tree (``blocks.0.filt1.w``)."""
+def gnn_params_from_jax(tree: dict, device) -> dict:
+    """A GNN parameter tree of the JAX package (SchNet, DimeNet, NequIP or
+    EquiformerV2: nested dicts and lists of numpy arrays, as
+    ``jax.tree.map(np.asarray, params)`` gives it) as a state dict for the
+    port's module (:class:`~repro_torch.models.layers.ParamTree`:
+    ``model.load_state_dict(...)``): each array copied, float32, on
+    ``device``, under its path in the tree (``blocks.0.filt1.w``,
+    ``layers.1.so2.2.wi``)."""
     return {name: torch.tensor(np.asarray(a, np.float32), device=device)
             for name, a in _flatten_tree(tree)}
 
 
+schnet_params_from_jax = gnn_params_from_jax
+
+
 def params_to_numpy(params):
     """A parameter tree (nested dicts and lists of tensors, or a module
-    with a ``tree()`` such as ``SchNet``) as numpy, in the layout
-    ``jax.tree.map(np.asarray, params)`` gives the reference's — the
-    inverse of :func:`schnet_params_from_jax`, for comparing weights."""
+    with a ``tree()``: ``SchNet``, ``DimeNet``, ``NequIP``,
+    ``EquiformerV2``) as numpy, in the layout ``jax.tree.map(np.asarray,
+    params)`` gives the reference's — the inverse of
+    :func:`gnn_params_from_jax`, for comparing weights."""
     if hasattr(params, "tree"):
         params = params.tree()
     if isinstance(params, dict):

@@ -59,6 +59,16 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     return out.index_add(0, segment_ids.long(), data)
 
 
+def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """``jax.ops.segment_max``: the row-wise max per segment, −inf for a
+    segment with no row (``scatter_reduce`` alone would keep its initial
+    value)."""
+    out = data.new_full((num_segments,) + tuple(data.shape[1:]), -torch.inf)
+    idx = _bcast(segment_ids.long(), data).expand_as(data)
+    return out.scatter_reduce(0, idx, data, "amax", include_self=False)
+
+
 def segment_mp(messages, edge_dst, n_nodes, edge_valid=None):
     """Scatter-sum messages [E, ...] to destination nodes [N, ...]."""
     if edge_valid is not None:
@@ -72,9 +82,7 @@ def segment_softmax(scores, edge_dst, n_nodes, edge_valid=None):
         scores = torch.where(_bcast(edge_valid, scores), scores,
                              torch.tensor(-1e30, dtype=scores.dtype,
                                           device=scores.device))
-    idx = _bcast(edge_dst.long(), scores).expand_as(scores)
-    mx = scores.new_full((n_nodes,) + tuple(scores.shape[1:]), -torch.inf)
-    mx = mx.scatter_reduce(0, idx, scores, "amax", include_self=False)
+    mx = segment_max(scores, edge_dst, n_nodes)
     ex = torch.exp(scores - mx[edge_dst.long()])
     if edge_valid is not None:
         ex = ex * _bcast(edge_valid, ex)

@@ -11,8 +11,9 @@ Parameters are a tree of the reference's layout — ``embed``, ``blocks``
 (the species embedding: ``w`` alone). :func:`forward` takes such a tree,
 as the reference's does, so a trainer can differentiate it; the module
 :class:`SchNet` holds one as parameters named after the tree's paths
-(``blocks.0.filt1.w``, ...). Matrix products are ``torch.matmul``;
-the readout's ``jax.ops.segment_sum`` is ``index_add``. There is no
+(``blocks.0.filt1.w``, ...; :class:`~repro_torch.models.layers.
+ParamTree`). Matrix products are ``torch.matmul``; the readout's
+``jax.ops.segment_sum`` is ``index_add``. There is no
 ``rules`` argument: the reference's sharding constraints have no
 counterpart on one card.
 """
@@ -22,7 +23,6 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch import nn
 
 from repro_torch.models import threefry
 from repro_torch.models.gnn.common import (
@@ -34,7 +34,7 @@ from repro_torch.models.gnn.common import (
     segment_sum,
     shifted_softplus,
 )
-from repro_torch.models.layers import truncated_normal
+from repro_torch.models.layers import ParamTree, truncated_normal
 from repro_torch.utils import resolve_device
 
 BLOCK_LAYERS = ("filt1", "filt2", "w_in", "w_out1", "w_out2")
@@ -106,49 +106,22 @@ def forward(cfg: Cfg, p, g: GraphBatch):
     return node, graph
 
 
-class _Leaf(nn.Module):
-    """One layer of the tree: its ``w`` (and ``b``) as parameters."""
-
-    def __init__(self, leaves: dict):
-        super().__init__()
-        for k, v in leaves.items():
-            self.register_parameter(k, nn.Parameter(v))
-
-    def tree(self) -> dict:
-        return dict(self.named_parameters(recurse=False))
-
-
-class SchNet(nn.Module):
+class SchNet(ParamTree):
     """SchNet as a module: ``forward(g)`` → ``(node_out, graph_out)``.
 
     ``params`` is a tree from :func:`init_params` (or carried from the
-    JAX package, see :func:`repro_torch.interop.schnet_params_from_jax`);
+    JAX package, see :func:`repro_torch.interop.gnn_params_from_jax`);
     without one, the weights are drawn from the threefry ``key`` (default
     ``threefry.prng_key(0)``, the reference's ``PRNGKey(0)``). They are
     placed on ``device`` (``None`` = the card)."""
 
     def __init__(self, cfg: Cfg, params: dict | None = None, *, key=None,
                  device=None):
-        super().__init__()
+        super().__init__(init_params(threefry.prng_key(0) if key is None
+                                     else key, cfg)
+                         if params is None else params)
         self.cfg = cfg
-        if params is None:
-            params = init_params(threefry.prng_key(0) if key is None
-                                 else key, cfg)
-        self.embed = _Leaf(params["embed"])
-        self.blocks = nn.ModuleList(
-            nn.ModuleDict({k: _Leaf(blk[k]) for k in BLOCK_LAYERS})
-            for blk in params["blocks"])
-        self.head1 = _Leaf(params["head1"])
-        self.head2 = _Leaf(params["head2"])
         self.to(resolve_device(device))
-
-    def tree(self) -> dict:
-        """The parameters as the reference's tree (the tensors
-        themselves, not copies)."""
-        return dict(embed=self.embed.tree(),
-                    blocks=[{k: blk[k].tree() for k in BLOCK_LAYERS}
-                            for blk in self.blocks],
-                    head1=self.head1.tree(), head2=self.head2.tree())
 
     def forward(self, g: GraphBatch):
         return forward(self.cfg, self.tree(), g)

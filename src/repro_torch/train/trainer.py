@@ -62,8 +62,12 @@ def _microbatch(batch, i: int):
 def _value_and_grad(loss_fn, params, batch):
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     loss, metrics = loss_fn(tree_unflatten(params, leaves), batch)
-    grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), metrics, tree_unflatten(params, list(grads))
+    # a leaf the loss does not reach (NequIP's last l > 0 mixes) gets a
+    # zero gradient, as jax.grad gives it
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    return loss.detach(), metrics, tree_unflatten(params, grads)
 
 
 def make_train_step(loss_fn, opt: Optimizer, *, accum_steps: int = 1,

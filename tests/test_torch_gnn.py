@@ -283,7 +283,7 @@ def test_schnet_default_weights_are_prng_key_0(smoke):
 
 
 def test_configs_equal_reference():
-    assert list_archs() == ["schnet"]
+    assert list_archs() == ["nequip", "schnet", "dimenet", "equiformer-v2"]
     assert _published() == dict(n_interactions=3, d_hidden=64, n_rbf=300,
                                 cutoff=10.0)
     for which in ("CONFIG", "SMOKE"):
@@ -293,6 +293,6 @@ def test_configs_equal_reference():
     assert [dataclasses.asdict(c) for c in ref_get_arch("schnet").SHAPES] == \
         [dataclasses.asdict(c) for c in get_arch("schnet").SHAPES]
     assert get_arch("schnet").KIND == "gnn"
-    for arch in ("dimenet", "nope"):
+    for arch in ("bst", "nope"):
         with pytest.raises(KeyError, match=f"unknown arch '{arch}'"):
             get_arch(arch)

@@ -24,6 +24,12 @@ def test_import_loads_no_jax():
     assert {"repro_torch.analysis.conservation", "repro_torch.analysis.lint",
             "repro_torch.analysis.__main__",
             "repro_torch.roofline.analysis"} <= set(mods)
+    # and neither do the GNN zoo, the sampler and the GNN cells
+    assert {"repro_torch.models.gnn.dimenet", "repro_torch.models.gnn.nequip",
+            "repro_torch.models.gnn.so3", "repro_torch.models.gnn.equiformer_v2",
+            "repro_torch.graphs.sampler", "repro_torch.launch.steps",
+            "repro_torch.configs.dimenet", "repro_torch.configs.nequip",
+            "repro_torch.configs.equiformer_v2"} <= set(mods)
     code = ("import sys, importlib\n"
             f"sys.path.insert(0, {str(ROOT)!r})\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
