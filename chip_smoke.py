@@ -103,7 +103,7 @@ Phases (every failure ends the run with a non-zero exit):
    factor 16, seed 0; S=8 logical shards on the card, dense transport,
    ``plan_engine(..., push_cap=4096, pull_q_cap=16)``, through the user
    entry points (``shard_dodgr`` → ``plan_engine`` → ``survey_push_only``
-   / ``survey_push_pull``). Ten paths, each with the launch counts set
+   / ``survey_push_pull``). Eleven paths, each with the launch counts set
    to 0 just before it and read just after (paths g and h: in each rank):
 
    a. the first slice's: degree metadata; TriangleCount and
@@ -216,6 +216,25 @@ Phases (every failure ends the run with a non-zero exit):
       (finite losses; the first and median step walls, the peak, model
       TFLOP/s from ``launch.steps.gnn_flops``); one profiled step a model
       (the device's idle share). It launches no kernel of ours (checked).
+   k. the LM serving path at internlm2-1.8b's published widths
+      (``path_lm``: ``configs/internlm2_1_8b.py``'s CONFIG, bf16, 1.889 B
+      parameters drawn on the card from ``threefry.prng_key(0)`` by the
+      threefry twin) through ``repro_torch.launch.serve.main``: batch 8,
+      prompts of 2,000 tokens from ``lm_batch(0, 1, ...)`` (the prefill's
+      attention pads them to 2,048), 64 greedy tokens over a cache of
+      2,064 positions. Checks: the twin's bits == numpy's over 2²² draws,
+      its truncated normals within 1e-6; the five LMs at SMOKE widths in
+      float32 (llama4's top-1 and kimi's top-4 MoE among them), card ==
+      CPU within 1e-5 (prefill logits, aux loss, a decode step); main's
+      own bf16 decode steps 1 and 63 against a bf16 forward over the
+      tokens it chose (``LM_BF16_DECODE_RTOL``); main's weights in
+      float32, decode steps 1, 32 and 63 against a forward over the tokens
+      so far (``LM_CACHE_RTOL``); in both, greedy tokens equal where the
+      top two are further apart than the difference can swap; the bf16
+      prefill's last position against float32's (``LM_BF16_RTOL``), its
+      first tokens == main's, every logit finite. Prefill and decode walls (main's lines), tokens/s,
+      model TFLOP/s (``launch.steps``), main's peak, one profiled prefill
+      and decode step (idle share). It launches no kernel of ours (checked).
 
    Every run is exact and every kernel of a path launched on it. Every
    plan a path runs is audited by ``repro_torch.analysis.check_plan``
@@ -245,7 +264,7 @@ Phases (every failure ends the run with a non-zero exit):
    wedge_intersect at rank 0's largest launch on path g, with path g's
    launches; fold_count_max on path a's largest fold with rows of 16
    words (no real call); every row with the kernel's launches on each
-   path a–j (path j: 0). On lines before the
+   path a–k (paths j and k: 0). On lines before the
    JSON: wedge_intersect at the fullest and at the last pull superstep,
    the fold_count_max launch bins, and the same measures of
    fold_count_max at its typical fold.
@@ -339,11 +358,12 @@ PATH_KERNELS = {
     "served_mesh": ("wedge_check", "fold_count_max", "hist_add"),
     "downstream": ("wedge_check", "wedge_intersect", "hist_add"),
     "zoo": (),
+    "lm": (),
 }
 # the letters PERF.md gives the full-size paths
 PATH_LETTERS = {"first": "a", "bundle": "b", "split": "c", "hub": "d",
                 "delta": "e", "served": "f", "mesh": "g", "served_mesh": "h",
-                "downstream": "i", "zoo": "j"}
+                "downstream": "i", "zoo": "j", "lm": "k"}
 REPORTED_PATH = {"wedge_check": "first", "wedge_intersect": "first",
                  "fold_count_max": "first", "ring_set": "bundle",
                  "hist_add": "bundle", "hist_max": "bundle",
@@ -2069,6 +2089,13 @@ def phase_full(torch, report, scale, dev):
     require(not any(launches["zoo"].values()),
             f"path j launched a kernel of the survey path: {launches['zoo']}")
     log(f"path j: {full['zoo']['wall_s']:.2f} s, no kernel of ours launched")
+    t0 = time.perf_counter()
+    _, launches["lm"] = run_path(torch, dev, "lm",
+                                 lambda: path_lm(torch, dev, full))
+    full["lm"]["wall_s"] = time.perf_counter() - t0
+    require(not any(launches["lm"].values()),
+            f"path k launched a kernel of the survey path: {launches['lm']}")
+    log(f"path k: {full['lm']['wall_s']:.2f} s, no kernel of ours launched")
 
     # capture one superstep's inputs of each kernel: DegreeTriples and
     # Enumerate bundled on path a's graph run wedge_check, wedge_intersect,
@@ -3206,6 +3233,262 @@ def path_zoo(torch, dev, full, widths="CONFIG"):
             f"resident before); {row['tflops']:.3f} model TFLOP/s "
             f"({cell.model_flops / 1e9:.2f} GFLOP a step)")
         del model, state, p32, p64
+    return out
+
+
+LM_ARCH = "internlm2-1.8b"
+LM_BATCH, LM_PROMPT, LM_GEN = 8, 2000, 64   # path k's traffic
+LM_CHECK_STEPS = (1, 32, 63)  # decode steps held to a forward over the tokens
+LM_TWIN_DRAW = 1 << 22     # the threefry twin's check: values drawn on the card
+LM_TWIN_ATOL = 1e-6        # its truncated normals vs numpy's
+# SMOKE widths in float32, card vs CPU: of the largest value
+LM_SMOKE_RTOL = 1e-5
+# float32 decode step vs a float32 forward's last position, of the largest
+# |logit|: the same sums in another order (CPU rehearsals: 4.2e-7 at SMOKE
+# widths, 1.0e-6 at 24 layers × 512); a bfloat16 step misses it by 100×
+LM_CACHE_RTOL = 1e-4
+# bfloat16 vs float32 prefill, last position, of the largest |logit| (a CPU
+# rehearsal at 24 layers, d 512: 1.6e-2; at 8 layers, d 1,024: 1.0e-2)
+LM_BF16_RTOL = 5e-2
+# main's own bfloat16 decode steps held to a bfloat16 forward over the
+# tokens so far (its last position), of the largest |logit|
+LM_BF16_STEPS = (1, 63)
+LM_BF16_DECODE_RTOL = 5e-2
+LM_ARCHS = ("internlm2-1.8b", "command-r-plus-104b", "phi3-mini-3.8b",
+            "llama4-maverick-400b-a17b", "kimi-k2-1t-a32b")
+
+
+def lm_twin_check(torch, dev) -> dict:
+    """The threefry twin on ``dev``: its bits equal numpy's, its truncated
+    normals within ``LM_TWIN_ATOL`` of numpy's."""
+    from repro_torch.models import threefry
+
+    key = threefry.prng_key(11)
+    bits = threefry.torch_random_bits(key, (LM_TWIN_DRAW,), dev).cpu().numpy()
+    require(np.array_equal(bits, threefry.random_bits(
+        key, (LM_TWIN_DRAW,)).astype(np.int64)), "path k: twin bits != numpy's")
+    z = threefry.torch_truncated_normal(key, -2.0, 2.0, (LM_TWIN_DRAW,), dev)
+    err = float(np.abs(z.cpu().numpy() - threefry.truncated_normal(
+        key, -2.0, 2.0, (LM_TWIN_DRAW,))).max())
+    require(err <= LM_TWIN_ATOL, f"path k: twin normals {err} > {LM_TWIN_ATOL}")
+    return dict(draw=LM_TWIN_DRAW, bits_equal=True, normal_max_abs_err=err)
+
+
+def lm_smoke_check(torch, dev) -> dict:
+    """All five LMs at SMOKE widths in float32, the same weights (drawn on
+    the CPU) on ``dev`` and on the CPU: prefill logits, the aux loss and a
+    decode step from the padded cache within ``LM_SMOKE_RTOL``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import lm_batch
+    from repro_torch.launch.serve import prefill
+    from repro_torch.models import threefry
+    from repro_torch.models import transformer as TF
+    from repro_torch.train.optimizer import tree_map
+
+    cpu = torch.device("cpu")
+    out = {}
+    for arch in LM_ARCHS:
+        cfg = get_arch(arch).SMOKE
+        p_cpu = TF.init_params(cfg, threefry.prng_key(0), cpu)
+        prompts = lm_batch(0, 1, 2, 64, cfg.vocab, cpu)
+        runs = []
+        for d, p in ((cpu, p_cpu), (dev, tree_map(lambda t: t.to(dev), p_cpu))):
+            logits, cache = prefill(cfg, p, prompts.to(d), 65)
+            aux = TF.forward(cfg, p, prompts.to(d))[1]["aux_loss"]
+            step, _ = TF.decode_step(cfg, p, cache, prompts[:, :1].to(d))
+            runs.append([t.double().cpu() for t in (logits, aux, step)])
+        errs = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                for a, b in zip(runs[1], runs[0])]
+        out[arch] = dict(zip(("logits", "aux_loss", "decode"), errs))
+        require(max(errs) <= LM_SMOKE_RTOL,
+                f"path k {arch} SMOKE card vs CPU: {out[arch]} > {LM_SMOKE_RTOL}")
+    return out
+
+
+def lm_step_check(torch, step, ref, rtol) -> dict:
+    """A decode step's logits [B, V] against a forward's last position:
+    the largest difference, of the largest |logit|, within ``rtol``, and
+    the greedy tokens equal wherever the forward's top two logits are
+    further apart than ``rtol`` or than twice that difference, whichever
+    is less (past twice the difference it cannot swap them)."""
+    scale = ref.abs().max()
+    err = float((step - ref).abs().max() / scale)
+    top2 = ref.topk(2, -1).values
+    gap = (top2[:, 0] - top2[:, 1]) / scale
+    wide = gap > min(rtol, 2 * err)
+    same = step.argmax(-1) == ref.argmax(-1)
+    return dict(rel_err=err, rtol=rtol, min_gap=float(gap.min()),
+                narrow_rows=int((~wide).sum()), tokens_equal=bool(same.all()),
+                ok=err <= rtol and bool(same[wide].all()))
+
+
+def path_lm(torch, dev, full, widths="CONFIG"):
+    """Path k: the LM serving path at internlm2-1.8b's published widths
+    (bf16, 24 layers, d 2,048, GQA 16/8 heads of 128, d_ff 8,192, vocab
+    92,544; weights from ``threefry.prng_key(0)`` drawn on the card),
+    through ``repro_torch.launch.serve.main``: batch ``LM_BATCH``, prompts
+    of ``LM_PROMPT`` tokens from ``lm_batch(0, 1, ...)`` (padded to 2,048
+    in the prefill's attention), ``LM_GEN`` greedy tokens. Checks: the
+    threefry twin; the five LMs at SMOKE widths, card == CPU; main's own
+    bf16 decode steps ``LM_BF16_STEPS`` against a bf16 forward over the
+    tokens main chose (``LM_BF16_DECODE_RTOL``), its tokens their logits'
+    argmax; in float32 (main's weights upcast), decode steps
+    ``LM_CHECK_STEPS`` against a forward over the tokens so far
+    (``LM_CACHE_RTOL``); in both, greedy tokens equal where
+    :func:`lm_step_check` says the difference cannot swap them; the bf16
+    prefill's last position against the float32 one (``LM_BF16_RTOL``).
+    Records: prefill and decode walls, tokens/s, model TFLOP/s
+    (``launch.steps``), peak memory, one profiled prefill and decode step.
+    ``widths="SMOKE"`` serves the SMOKE model for a CPU rehearsal."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import lm_decode_flops, lm_prefill_flops
+    from repro_torch.models import transformer as TF
+    from repro_torch.train.optimizer import tree_map
+
+    cfg = getattr(get_arch(LM_ARCH), widths)
+    B, P, G = LM_BATCH, LM_PROMPT, LM_GEN
+    out = full["lm"] = dict(arch=LM_ARCH, widths=widths, batch=B, prompt=P,
+                            gen=G, params=cfg.n_params)
+    t0 = time.perf_counter()
+    out["twin"] = lm_twin_check(torch, dev)
+    out["smoke"] = lm_smoke_check(torch, dev)
+    out["checks_s"] = time.perf_counter() - t0
+    log(f"path k: threefry twin == numpy ({LM_TWIN_DRAW} bits; normals within "
+        f"{out['twin']['normal_max_abs_err']:.2e}); SMOKE card vs CPU "
+        + ", ".join(f"{a} {max(e.values()):.2e}" for a, e in out["smoke"].items())
+        + f" (rtol {LM_SMOKE_RTOL}); {out['checks_s']:.2f} s")
+
+    # the traffic, through the entry point
+    argv = ["--arch", LM_ARCH, "--batch", str(B), "--prompt-len", str(P),
+            "--gen", str(G), "--seed", "0", "--device", str(dev)]
+    argv += ["--smoke"] if widths == "SMOKE" else []
+    base = memory_reset(torch, dev)
+    buf, keep = io.StringIO(), {}
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        seqs = serve.main(argv, keep=keep)
+    out["main_s"] = time.perf_counter() - t0
+    out["peak_bytes"] = peak_memory(torch, dev) - base
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"path k serve: {line}")
+    pre = re.match(r"prefill: \d+×\d+ in ([\d.]+) ms", lines[0])
+    dec = re.match(r"decode: \d+ steps × batch \d+ in ([\d.]+) ms", lines[1])
+    require(pre and dec and seqs.shape == (B, G)
+            and lines[2].startswith("sample continuation ids: "),
+            f"path k: serve printed {lines}, returned {seqs.shape}")
+    out["prefill_s"] = float(pre.group(1)) / 1e3
+    out["decode_s"] = float(dec.group(1)) / 1e3
+    out["prefill_tok_s"] = B * P / out["prefill_s"]
+    out["decode_tok_s"] = B * (G - 1) / out["decode_s"]
+    out["prefill_flops"] = lm_prefill_flops(cfg, B, P)
+    out["decode_flops"] = (G - 1) * lm_decode_flops(cfg, B, P + G)
+    out["prefill_tflops"] = out["prefill_flops"] / out["prefill_s"] / 1e12
+    out["decode_tflops"] = out["decode_flops"] / out["decode_s"] / 1e12
+    out["sample"] = seqs[0][:16].tolist()
+
+    # main's own weights and logits from here on
+    p16, prompts, kept = keep.pop("params"), keep["prompts"], keep.pop("logits")
+    require(keep["cfg"] == cfg and len(kept) == G,
+            f"path k: main kept {keep['cfg'].name}, {len(kept)} logits")
+    seqs_t = torch.as_tensor(seqs, device=dev)
+    with torch.inference_mode():
+        require(all(bool(torch.isfinite(t).all()) for t in kept),
+                "path k: main's bf16 logits not finite")
+        # main's bf16 decode steps against a bf16 forward over the tokens
+        # main chose so far
+        t0 = time.perf_counter()
+        checks = out["bf16_decode_checks"] = {}
+        for i in LM_BF16_STEPS:
+            lf, _ = TF.forward(cfg, p16, torch.cat([prompts, seqs_t[:, :i]], 1))
+            ref = lf[:, -1].float()
+            del lf
+            require(torch.equal(kept[i][:, 0].argmax(-1), seqs_t[:, i]),
+                    f"path k: main's token at step {i} is not its logits' argmax")
+            checks[i] = lm_step_check(torch, kept[i][:, 0].float(), ref,
+                                      LM_BF16_DECODE_RTOL)
+            require(checks[i]["ok"], f"path k: bf16 decode step {i} vs a bf16 "
+                    f"forward {checks[i]}")
+        out["bf16_checks_s"] = time.perf_counter() - t0
+        del kept
+
+        # a prefill and a decode step of the same weights profiled; the
+        # prefill's first tokens are main's
+        res = {}
+
+        def prefill16():
+            res["logits"], res["cache"] = serve.prefill(cfg, p16, prompts, P + G)
+
+        def step16():
+            res["step"] = TF.decode_step(cfg, p16, res["cache"], seqs_t[:, :1])[0]
+
+        if dev.type == "cuda":
+            out["profile_prefill"] = profile_run(torch, "path k prefill",
+                                                 prefill16, top=8)
+            out["profile_decode"] = profile_run(torch, "path k decode step",
+                                                step16, top=8)
+        else:
+            prefill16()
+            step16()
+        last16 = res["logits"][:, -1].float()
+        require(torch.equal(serve.greedy(last16), seqs_t[:, 0]),
+                "path k: the prefill's first tokens differ from main's")
+        require(bool(torch.isfinite(res["logits"]).all())
+                and bool(torch.isfinite(res["step"]).all()),
+                "path k: bf16 logits not finite")
+        del res
+        # float32: the same weights upcast
+        cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+        p32 = tree_map(lambda t: t.float(), p16)
+        del p16
+        t0 = time.perf_counter()
+        logits, cache = serve.prefill(cfg32, p32, prompts, P + G)
+        last32 = logits[:, -1].clone()
+        del logits
+        out["bf16_rel_err"] = float((last16 - last32).abs().max()
+                                    / last32.abs().max())
+        require(out["bf16_rel_err"] <= LM_BF16_RTOL,
+                f"path k: bf16 vs float32 prefill {out['bf16_rel_err']} > "
+                f"{LM_BF16_RTOL}")
+        toks, steps = [serve.greedy(last32[:, None])], {}
+        for i in range(1, G):
+            lg, cache = TF.decode_step(cfg32, p32, cache, toks[-1])
+            if i in LM_CHECK_STEPS:
+                steps[i] = lg[:, 0].clone()
+            toks.append(serve.greedy(lg))
+        del cache
+        checks = out["cache_checks"] = {}
+        for i, step in steps.items():
+            lf, _ = TF.forward(cfg32, p32, torch.cat([prompts] + toks[:i], 1))
+            ref = lf[:, -1].clone()
+            del lf
+            checks[i] = lm_step_check(torch, step, ref, LM_CACHE_RTOL)
+            require(checks[i]["ok"],
+                    f"path k: float32 decode step {i} vs forward {checks[i]}")
+            if checks[i]["narrow_rows"]:
+                log(f"path k: float32 step {i}: {checks[i]['narrow_rows']} rows "
+                    "with the top two logits too close to hold their token")
+        out["float32_s"] = time.perf_counter() - t0
+        del p32
+    log(f"path k: {LM_ARCH} {widths} ({cfg.n_params} parameters), batch {B}, "
+        f"prompt {P}, {G} tokens: prefill {out['prefill_s']:.4f} s "
+        f"({out['prefill_tok_s']:.0f} tok/s, {out['prefill_tflops']:.2f} model "
+        f"TFLOP/s), decode {out['decode_s']:.4f} s ({out['decode_tok_s']:.0f} "
+        f"tok/s, {out['decode_tflops']:.3f} TFLOP/s); main {out['main_s']:.2f} s, "
+        f"peak {out['peak_bytes'] / 2**30:.2f} GiB; bf16 decode vs forward "
+        + ", ".join(f"step {i} {c['rel_err']:.3e} (gap {c['min_gap']:.2e}, "
+                    f"{c['narrow_rows']} narrow)"
+                    for i, c in out["bf16_decode_checks"].items())
+        + f" (rtol {LM_BF16_DECODE_RTOL}; {out['bf16_checks_s']:.2f} s); "
+        f"bf16 vs float32 {out['bf16_rel_err']:.3e} (rtol {LM_BF16_RTOL}); "
+        "float32 decode vs forward " + ", ".join(
+            f"step {i} {c['rel_err']:.2e} (gap {c['min_gap']:.2e})"
+            for i, c in checks.items())
+        + f" (rtol {LM_CACHE_RTOL}); float32 checks {out['float32_s']:.2f} s")
     return out
 
 

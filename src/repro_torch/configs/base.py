@@ -1,11 +1,13 @@
 """Config dataclasses and input-shape cells of the port's architectures.
 
 The twin of ``repro.configs.base``, for the families ported so far: the
-GNNs (``GNNConfig``, ``GNN_SHAPES``) and the ``ShapeCell`` they use. One
-file per ported architecture lives next to this module and exports
-``CONFIG`` (the exact published shapes), ``SMOKE`` (a reduced same-family
-variant for CPU tests), ``SHAPES`` (its input-shape cells) and ``KIND``.
-The LM, recsys and TriPoll dry-run configs come with their slices.
+LM transformers (``MoESpec``, ``LMConfig``, ``LM_SHAPES``), the GNNs
+(``GNNConfig``, ``GNN_SHAPES``) and the ``ShapeCell`` they use. One file
+per ported architecture lives next to this module and exports ``CONFIG``
+(the exact published shapes), ``SMOKE`` (a reduced same-family variant
+for CPU tests), ``SHAPES`` (its input-shape cells), ``KIND`` and, where
+the reference names one, ``OPTIMIZER``. The recsys and TriPoll dry-run
+configs come with their slices.
 """
 from __future__ import annotations
 
@@ -24,6 +26,20 @@ class ShapeCell:
     skip_reason: str | None = None   # e.g. long_500k on pure full-attention archs
 
 
+LM_SHAPES = (
+    ShapeCell("train_4k", "train", seq_len=4096, global_batch=256),
+    ShapeCell("prefill_32k", "prefill", seq_len=32768, global_batch=32),
+    ShapeCell("decode_32k", "decode", seq_len=32768, global_batch=128),
+    ShapeCell(
+        "long_500k", "decode", seq_len=524288, global_batch=1,
+        skip_reason=(
+            "pure full-attention arch: brief directs skip for long_500k "
+            "(sub-quadratic attention required); decode lowering is O(L) "
+            "per step and is recorded as an unscored extra"
+        ),
+    ),
+)
+
 GNN_SHAPES = (
     ShapeCell("full_graph_sm", "graph", extras=dict(
         n_nodes=2708, n_edges=10556, d_feat=1433, regime="full-batch")),
@@ -35,6 +51,77 @@ GNN_SHAPES = (
     ShapeCell("molecule", "graph", extras=dict(
         n_nodes=30, n_edges=64, batch=128, regime="batched-small-graphs")),
 )
+
+
+# ---------------------------------------------------------------------------
+# LM transformers
+
+
+@dataclass(frozen=True)
+class MoESpec:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+    router_z_loss: float = 1e-3
+    aux_loss: float = 1e-2
+    group_size: int = 2048       # tokens per dispatch group (memory knob)
+    group_chunks: int = 1        # chunks over groups (memory knob)
+
+
+@dataclass(frozen=True)
+class LMConfig:
+    """The reference's ``LMConfig`` less its compile and sharding knobs
+    (``remat``, ``attn_shard``, ``moe_group_chunks``, ``scan_unroll``) and
+    ``attn_bias``: one card has no mesh to shard over, and the port's
+    models have no biases, as no published configuration does."""
+
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    d_head: int = 0                       # 0 → d_model // n_heads
+    moe: MoESpec | None = None
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    dtype: str = "bfloat16"               # activation/compute dtype
+    param_dtype: str = "bfloat16"
+    attn_chunk: int = 1024                # flash-style KV block size
+
+    def __post_init__(self):
+        if self.d_head == 0:
+            object.__setattr__(self, "d_head", self.d_model // self.n_heads)
+
+    @property
+    def n_params(self) -> int:
+        """Total parameter count (embeddings + blocks), for roofline math."""
+        d, dh = self.d_model, self.d_head
+        attn = d * self.n_heads * dh + 2 * d * self.n_kv_heads * dh \
+            + self.n_heads * dh * d
+        if self.moe is not None:
+            ff = 3 * d * self.moe.d_ff_expert * self.moe.n_experts \
+                + d * self.moe.n_experts
+        else:
+            ff = 3 * d * self.d_ff
+        norms = 2 * d
+        emb = 2 * self.vocab * d
+        return self.n_layers * (attn + ff + norms) + emb + d
+
+    @property
+    def n_active_params(self) -> int:
+        """Active parameters per token (MoE: top-k experts only)."""
+        if self.moe is None:
+            return self.n_params
+        d = self.d_model
+        dense = self.n_params - self.n_layers * 3 * d * self.moe.d_ff_expert * self.moe.n_experts
+        return dense + self.n_layers * 3 * d * self.moe.d_ff_expert * self.moe.top_k
+
+
+# ---------------------------------------------------------------------------
+# GNNs
 
 
 @dataclass(frozen=True)

@@ -98,16 +98,42 @@ def gnn_params_from_jax(tree: dict, device) -> dict:
 schnet_params_from_jax = gnn_params_from_jax
 
 
+def _leaf_from_numpy(a, device) -> torch.Tensor:
+    """A numpy leaf as a tensor of its own dtype; a bfloat16 leaf (an
+    ``ml_dtypes`` array) crosses as its bits, without importing
+    ``ml_dtypes``."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.tensor(a, device=device)
+
+
+def lm_params_from_jax(tree: dict, device) -> dict:
+    """An LM parameter tree of the JAX package (``jax.tree.map(np.asarray,
+    params)`` of ``repro.models.transformer.init_params``) as the port's
+    tree of tensors on ``device``, each leaf in its own dtype: the norms
+    and the router float32, the matrices ``param_dtype``, bit for bit."""
+    if isinstance(tree, dict):
+        return {k: lm_params_from_jax(v, device) for k, v in tree.items()}
+    return _leaf_from_numpy(tree, device)
+
+
 def params_to_numpy(params):
     """A parameter tree (nested dicts and lists of tensors, or a module
     with a ``tree()``: ``SchNet``, ``DimeNet``, ``NequIP``,
     ``EquiformerV2``) as numpy, in the layout ``jax.tree.map(np.asarray,
     params)`` gives the reference's — the inverse of
-    :func:`gnn_params_from_jax`, for comparing weights."""
+    :func:`gnn_params_from_jax` and :func:`lm_params_from_jax`, for
+    comparing weights. A bfloat16 leaf comes back as its bits, ``uint16``
+    (the reference's leaf ``.view(np.uint16)``)."""
     if hasattr(params, "tree"):
         params = params.tree()
     if isinstance(params, dict):
         return {k: params_to_numpy(v) for k, v in params.items()}
     if isinstance(params, (list, tuple)):
         return [params_to_numpy(v) for v in params]
-    return params.detach().cpu().numpy()
+    t = params.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()

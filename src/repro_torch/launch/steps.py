@@ -1,4 +1,5 @@
-"""GNN cells: the GNN part of ``repro.launch.steps``.
+"""GNN cells and LM model FLOPs: the GNN and LM parts of
+``repro.launch.steps``.
 
 A cell is one (architecture × input shape) pair: the model config the
 cell builds (:func:`gnn_forward_builder`), its padded sizes
@@ -8,8 +9,9 @@ that) and the training loss (:func:`gnn_loss`: node cross-entropy over
 the valid nodes, or the graph-energy MSE). :func:`gnn_cell` puts them
 together for a port ``make_train_step``. The reference's cell also
 carries shardings and abstract inputs for a JAX mesh (``CellPlan``); on
-one card the port has no counterpart. The LM, recsys and TriPoll cells
-wait for the dry-run slice.
+one card the port has no counterpart. Of the LM cells the port has the
+model FLOPs (:func:`lm_attn_flops`, :func:`lm_prefill_flops`,
+:func:`lm_decode_flops`), for the card's model TFLOP/s; the recsys and TriPoll cells wait for the dry-run slice.
 """
 from __future__ import annotations
 
@@ -19,7 +21,29 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch import configs as config_registry
-from repro_torch.configs.base import GNNConfig
+from repro_torch.configs.base import GNNConfig, LMConfig
+
+# ---------------------------------------------------------------------------
+# LM cells: model FLOPs
+
+
+def lm_attn_flops(cfg: LMConfig, B, S):
+    """Attention score and value FLOPs of a causal forward over [B, S]."""
+    return cfg.n_layers * B * cfg.n_heads * cfg.d_head * S * S * 2.0
+
+
+def lm_prefill_flops(cfg: LMConfig, B, S):
+    return 2.0 * cfg.n_active_params * B * S + lm_attn_flops(cfg, B, S)
+
+
+def lm_decode_flops(cfg: LMConfig, B, S):
+    """One decode step of B tokens against an S-entry cache."""
+    return (2.0 * cfg.n_active_params * B
+            + cfg.n_layers * B * cfg.n_heads * cfg.d_head * S * 4.0)
+
+
+# ---------------------------------------------------------------------------
+# GNN cells
 
 # N is padded to a 512 multiple (shardable over both production meshes);
 # the logical brief sizes live in `N_logical` and the padding rides the

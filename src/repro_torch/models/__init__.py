@@ -1,3 +1,4 @@
-# Model zoo of the port: the GNNs, SchNet first (models/gnn/). Message
-# passing is index_add_ over edge indices, as the JAX package's is
-# segment_sum; matrix products are torch.matmul.
+# Model zoo of the port: the GNNs, SchNet first (models/gnn/), and the
+# decoder-only LMs (transformer.py, moe.py). Message passing is index_add_
+# over edge indices, as the JAX package's is segment_sum; matrix products
+# are torch.matmul.

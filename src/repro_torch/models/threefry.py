@@ -15,7 +15,13 @@ operation (``erf_inv`` is Giles' single-precision polynomial, as XLA
 computes it; numpy's ``log1p`` is not XLA's), so a truncated normal
 lies within a few float32 roundings of the reference's (7.2e-7 at most
 over 19,200 draws) and the bits and uniforms are the reference's
-exactly.
+exactly. :func:`fold_in` and :func:`randint` (``int32``) are exact.
+
+:func:`torch_random_bits`, :func:`torch_uniform` and
+:func:`torch_truncated_normal` are the same draws as torch tensors on a
+given device, for weights too large to draw on the host (a full-width
+LM holds billions): the same bits and uniforms, and normals within a
+float32 rounding of this module's (``log1p`` is the device's).
 """
 from __future__ import annotations
 
@@ -23,16 +29,17 @@ import math
 
 import numpy as np
 
-__all__ = ["prng_key", "split", "random_bits", "uniform",
-           "truncated_normal"]
+__all__ = ["prng_key", "split", "fold_in", "random_bits", "uniform",
+           "truncated_normal", "randint", "torch_random_bits",
+           "torch_uniform", "torch_truncated_normal"]
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
 def prng_key(seed: int) -> np.ndarray:
-    """``jax.random.PRNGKey(seed)``: the seed's high and low 32 bits."""
-    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
-    return np.array([seed >> 32, seed & 0xFFFFFFFF], np.uint32)
+    """``jax.random.PRNGKey(seed)`` with 64-bit types off (JAX's default,
+    the reference's): the seed's low 32 bits, after a high word of 0."""
+    return np.array([0, int(seed) & 0xFFFFFFFF], np.uint32)
 
 
 def _rotl(x: np.ndarray, d: int) -> np.ndarray:
@@ -66,6 +73,13 @@ def split(key: np.ndarray, num: int = 2) -> np.ndarray:
     hi, lo = _counts((num,))
     b0, b1 = _threefry2x32(key, hi, lo)
     return np.stack([b0, b1], axis=-1)
+
+
+def fold_in(key: np.ndarray, data: int) -> np.ndarray:
+    """``jax.random.fold_in(key, data)``: the hash of the count (0, data)."""
+    b0, b1 = _threefry2x32(key, np.zeros(1, np.uint32),
+                           np.array([int(data) & 0xFFFFFFFF], np.uint32))
+    return np.array([b0[0], b1[0]], np.uint32)
 
 
 def random_bits(key: np.ndarray, shape) -> np.ndarray:
@@ -123,3 +137,126 @@ def truncated_normal(key: np.ndarray, lower: float, upper: float,
     out = sqrt2 * _erf_inv(u)
     return np.clip(out, np.nextafter(lo, f32(np.inf)),
                    np.nextafter(up, f32(-np.inf))).astype(np.float32)
+
+
+def randint(key: np.ndarray, shape, minval: int, maxval: int) -> np.ndarray:
+    """``jax.random.randint(key, shape, minval, maxval)`` in ``int32``
+    (bounds outside int32 raise, as the reference's do): two bit streams
+    from a split key; the high one mod the span, times 2³² mod the span,
+    plus the low one mod the span, mod the span — in uint32 arithmetic,
+    which wraps where the reference's wraps."""
+    lo, hi = np.int32(minval), np.int32(maxval)
+    k1, k2 = split(key)
+    higher, lower = random_bits(k1, shape), random_bits(k2, shape)
+    with np.errstate(over="ignore"):
+        span = np.uint32(1) if hi <= lo else (hi - lo).astype(np.uint32)
+        mult = np.uint32(2 ** 16) % span
+        mult = mult * mult % span
+        off = ((higher % span) * mult + lower % span) % span
+        return lo + off.astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# the same draws on a device
+
+_CHUNK = 1 << 24     # elements hashed at a time (bounds the temporaries)
+_M32 = 0xFFFFFFFF
+
+
+def _bits_chunk(key: np.ndarray, start: int, n: int, device):
+    """:func:`random_bits` of the flat indices [start, start + n) as an
+    int64 tensor of uint32 values: :func:`_threefry2x32` on int64."""
+    import torch
+
+    idx = torch.arange(start, start + n, dtype=torch.int64, device=device)
+    k0, k1 = int(key[0]), int(key[1])
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (idx >> 32).add_(ks[0]).bitwise_and_(_M32)
+    x1 = idx.bitwise_and_(_M32).add_(ks[1]).bitwise_and_(_M32)
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0.add_(x1).bitwise_and_(_M32)
+            x1 = ((x1 << r).bitwise_and_(_M32) | (x1 >> (32 - r))) ^ x0
+        x0.add_(ks[(i + 1) % 3]).bitwise_and_(_M32)
+        x1.add_(ks[(i + 2) % 3] + i + 1).bitwise_and_(_M32)
+    return x0 ^ x1
+
+
+def _fill(shape, dtype, device, chunk_fn):
+    """A tensor of ``shape`` filled ``_CHUNK`` flat elements at a time by
+    ``chunk_fn(start, n)``."""
+    import torch
+
+    out = torch.empty(tuple(int(s) for s in shape), dtype=dtype, device=device)
+    flat = out.view(-1)
+    for a in range(0, flat.numel(), _CHUNK):
+        n = min(_CHUNK, flat.numel() - a)
+        flat[a:a + n] = chunk_fn(a, n)
+    return out
+
+
+def torch_random_bits(key: np.ndarray, shape, device):
+    """:func:`random_bits` as an int64 tensor on ``device`` (values in
+    [0, 2³²))."""
+    import torch
+
+    return _fill(shape, torch.int64, device,
+                 lambda a, n: _bits_chunk(key, a, n, device))
+
+
+def _uniform_chunk(key, start, n, lo, hi, device):
+    """:func:`uniform`'s float32 steps on the bits of one chunk."""
+    import torch
+
+    bits = _bits_chunk(key, start, n, device)
+    floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo_t = torch.tensor(lo, device=device)
+    return torch.maximum(lo_t, floats * torch.tensor(hi - lo, device=device)
+                         + lo_t)
+
+
+def torch_uniform(key: np.ndarray, shape, device, minval=0.0, maxval=1.0):
+    """:func:`uniform` as a float32 tensor on ``device``: the same bits and
+    the same float32 operations, so the same values."""
+    import torch
+
+    lo, hi = np.float32(minval), np.float32(maxval)
+    return _fill(shape, torch.float32, device,
+                 lambda a, n: _uniform_chunk(key, a, n, lo, hi, device))
+
+
+def _erf_inv_t(x):
+    """:func:`_erf_inv` on a float32 tensor: the same polynomial, each
+    step rounded once from float64."""
+    import torch
+
+    f32 = lambda v: torch.tensor(np.float32(v), device=x.device)
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - f32(2.5), torch.sqrt(w) - f32(3.0)).double()
+    p = torch.where(lt, f32(_ERFINV_W_LT_5[0]), f32(_ERFINV_W_GE_5[0]))
+    for a, b in zip(_ERFINV_W_LT_5[1:], _ERFINV_W_GE_5[1:]):
+        c = torch.where(lt, f32(a), f32(b)).double()
+        p = (c + p.double() * w).to(torch.float32)
+    return torch.where(x.abs() == 1.0, x * f32(np.finfo(np.float32).max),
+                       p * x)
+
+
+def torch_truncated_normal(key: np.ndarray, lower: float, upper: float,
+                           shape, device):
+    """:func:`truncated_normal` as a float32 tensor on ``device``."""
+    import torch
+
+    f32 = np.float32
+    sqrt2 = f32(np.sqrt(2))
+    lo, up = f32(lower), f32(upper)
+    a = f32(math.erf(float(lo / sqrt2)))
+    b = f32(math.erf(float(up / sqrt2)))
+    clip = (float(np.nextafter(lo, f32(np.inf))),
+            float(np.nextafter(up, f32(-np.inf))))
+
+    def chunk(start, n):
+        u = _uniform_chunk(key, start, n, a, b, device)
+        return (torch.tensor(sqrt2, device=device) * _erf_inv_t(u)).clamp_(*clip)
+
+    return _fill(shape, torch.float32, device, chunk)

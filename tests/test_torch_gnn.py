@@ -283,7 +283,10 @@ def test_schnet_default_weights_are_prng_key_0(smoke):
 
 
 def test_configs_equal_reference():
-    assert list_archs() == ["nequip", "schnet", "dimenet", "equiformer-v2"]
+    assert list_archs() == ["internlm2-1.8b", "command-r-plus-104b",
+                            "phi3-mini-3.8b", "llama4-maverick-400b-a17b",
+                            "kimi-k2-1t-a32b", "nequip", "schnet", "dimenet",
+                            "equiformer-v2"]
     assert _published() == dict(n_interactions=3, d_hidden=64, n_rbf=300,
                                 cutoff=10.0)
     for which in ("CONFIG", "SMOKE"):

@@ -1,4 +1,5 @@
-"""The port and its smoke script load neither JAX nor the JAX package."""
+"""The port and its smoke script load neither JAX nor the JAX package
+(nor ``ml_dtypes``, which the card's machine does not have)."""
 import os
 import re
 import subprocess
@@ -30,12 +31,20 @@ def test_import_loads_no_jax():
             "repro_torch.graphs.sampler", "repro_torch.launch.steps",
             "repro_torch.configs.dimenet", "repro_torch.configs.nequip",
             "repro_torch.configs.equiformer_v2"} <= set(mods)
+    # nor does the LM serving path
+    assert {"repro_torch.models.transformer", "repro_torch.models.moe",
+            "repro_torch.data.tokens", "repro_torch.launch.serve",
+            "repro_torch.configs.internlm2_1_8b",
+            "repro_torch.configs.phi3_mini_3_8b",
+            "repro_torch.configs.command_r_plus_104b",
+            "repro_torch.configs.llama4_maverick_400b_a17b",
+            "repro_torch.configs.kimi_k2_1t_a32b"} <= set(mods)
     code = ("import sys, importlib\n"
             f"sys.path.insert(0, {str(ROOT)!r})\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "import chip_smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro')]\n"
+            "('jax', 'jaxlib', 'repro', 'ml_dtypes')]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
