@@ -88,33 +88,38 @@ Phases (every failure ends the run with a non-zero exit):
    (``repro_torch.roofline.reconcile_collectives``); every kernel
    launched in the ranks. Over nccl too, one rank per card, where there
    are four cards (otherwise one line says it was not run).
-5. ``examples`` — the port's seven examples (``repro_torch.examples``:
-   quickstart, closure, label, multi, hub, streaming and the GNN loop) at
-   their own sizes on the card, each through ``main(device=...)``; what
-   each prints and returns is held to its JAX twin's recorded lines
-   (``repro_torch.examples.expected.check``): the six survey examples line
-   for line, the GNN example's survey line exactly, the losses of its
-   first training steps within ``expected.LOSS_TOL`` of the twin's,
-   finite losses that fall and a positive triangle-feature gain (its
-   training is chaotic past those steps; its final numbers, its gap to
-   the twin at every step and the first step where the gap passes
-   ``LOSS_TOL`` are printed). Each example's wall.
+5. ``examples`` — the port's eight examples (``repro_torch.examples``:
+   quickstart, closure, label, multi, hub, streaming, the GNN loop and LM
+   training) at their own sizes on the card, each through
+   ``main(device=...)``; what each prints and returns is held to its JAX
+   twin's recorded lines (``repro_torch.examples.expected.check``): the
+   six survey examples line for line, the GNN example's survey line
+   exactly, the losses of its first training steps within
+   ``expected.LOSS_TOL`` of the twin's, finite losses that fall and a
+   positive triangle-feature gain (its training is chaotic past those
+   steps; its final numbers, its gap to the twin at every step and the
+   first step where the gap passes ``LOSS_TOL`` are printed); the LM
+   example's lines with their timings masked and every one of its 200
+   steps' losses within ``expected.TRAIN_LM_LOSS_TOL`` of the twin's.
+   Each example's wall.
 6. ``full``    — Graph500 R-MAT (a=0.57, b=0.19, c=0.19), scale 18, edge
    factor 16, seed 0; S=8 logical shards on the card, dense transport,
    ``plan_engine(..., push_cap=4096, pull_q_cap=16)``, through the user
    entry points (``shard_dodgr`` → ``plan_engine`` → ``survey_push_only``
-   / ``survey_push_pull``). Eleven paths, each with the launch counts set
+   / ``survey_push_pull``). Twelve paths, each with the launch counts set
    to 0 just before it and read just after (paths g and h: in each rank):
 
    a. the first slice's: degree metadata; TriangleCount and
       DegreeTriples(capacity=4096), push-pull, and push-only on the same
-      R-MAT two scales smaller (16, for the script's time: push-only is
-      host-bound), whose count a sparse product on the host gives. Each count is its graph's, the
-      DegreeTriples totals equal it.
-   b. the metadata polling path: label, degree, timestamp and timestamp
-      bucket metadata (``survey_meta``), one push-pull SurveyBundle of all
-      eight built-ins. Its triangle count is the known 82,824,164; every
-      member's result is checked against it, Enumerate's rows and the
+      R-MAT ``PUSH_CUT_SCALES`` smaller (15, for the script's time:
+      push-only is host-bound), whose count a sparse product on the host
+      gives. Each count is its graph's, the DegreeTriples totals equal it.
+   b. the metadata polling path, on the same R-MAT ``BUNDLE_CUT_SCALES``
+      smaller (17, for the script's time): label, degree, timestamp and
+      timestamp bucket metadata (``survey_meta``), one push-pull
+      SurveyBundle of all eight built-ins. Its triangle count is the
+      graph's (a sparse product on the host); every member's result is
+      checked against it, Enumerate's rows and the
       top-k triangles against the edge set, the top-k weights against
       the timestamps; the plan is stamped ``bitwise`` by tracing the
       bundle's folds. Each hist_add and hist_max launch is counted, by
@@ -131,8 +136,8 @@ Phases (every failure ends the run with a non-zero exit):
       θ, the hub set and the hub steps as planned, the hub, push and pull
       stats as planned (the float32 sums within their rounding), the
       known count, DegreeTriples equal to path a's; walls and peak memory.
-   e. a delta stream under the stable key, push-only, on path a's
-      push-only graph (scale 16): the edges less a seeded 0.1%
+   e. a delta stream under the stable key, push-only, on the same R-MAT
+      ``CUT_SCALES`` smaller (16): the edges less a seeded 0.1%
       (``numpy.random.default_rng(3)``) appended to an empty base, then
       the held-out edges, each epoch through ``plan_delta(...,
       push_cap=65536, hub_theta="auto", hub_wedge_cap=2²⁰)`` and
@@ -140,7 +145,7 @@ Phases (every failure ends the run with a non-zero exit):
       DegreeTriples. After the two epochs: the known count, DegreeTriples
       totalling it, and the epochs' tris_push + tris_hub equal to it
       (within float32 rounding).
-   f. the serve layer on path a's push-only graph (scale 16, for the
+   f. the serve layer on path a's push-only graph (scale 15, for the
       script's time): ``SurveyService(that graph
       less a seeded 0.1% as path e holds out, 8, mode="push",
       push_cap=65536, hub_theta="auto", hub_wedge_cap=2²⁰,
@@ -157,10 +162,12 @@ Phases (every failure ends the run with a non-zero exit):
    g. the mesh transport: path a's shards saved once, one file per rank;
       S=8 rank processes sharing the card over gloo, each loading its
       slice: TriangleCount push-pull on a ``transport="mesh"`` plan
-      (ragged caps in scheduled rounds, one ``batch_isend_irecv`` each)
-      and DegreeTriples push-pull on path a's dense plan relabelled mesh
-      (uniform caps, one ``all_to_all_single``), each rank's result equal
-      to path a's bit for bit, the stats within their float32 rounding
+      (ragged caps in scheduled rounds, one ``batch_isend_irecv`` each),
+      each rank's result equal to path a's, and DegreeTriples push-pull
+      on path e's graph (scale 16, for the script's time; its shards
+      saved the same way) on a dense plan relabelled mesh (uniform caps,
+      one ``all_to_all_single``), each rank's result equal bit for bit to
+      the dense plan's stacked run on the card; the stats within their float32 rounding
       of the plan, the bytes handed to the collectives reconciled per
       lane with the plan's byte model (``reconcile_collectives``: each
       lane == the plan's sent bytes, no rank over the schedule's
@@ -188,7 +195,8 @@ Phases (every failure ends the run with a non-zero exit):
       for a GNN) at full width: ``repro_torch.examples.
       triangle_features_gnn.run`` on path a's graph and shards — a
       push-pull LocalVertexCount survey (path a's plan parameters) whose
-      counts equal path b's bundle member bit for bit, then SchNet at
+      counts equal the capture run's bundle member (after path l) bit for
+      bit, then SchNet at
       ``configs/schnet.py``'s published widths (3 interactions, 64 wide,
       300 Gaussian bases, cutoff 10; 2 or 3 node features, 2 classes)
       trained full batch over all 7,611,176 directed edges by the port's
@@ -235,6 +243,25 @@ Phases (every failure ends the run with a non-zero exit):
       first tokens == main's, every logit finite. Prefill and decode walls (main's lines), tokens/s,
       model TFLOP/s (``launch.steps``), main's peak, one profiled prefill
       and decode step (idle share). It launches no kernel of ours (checked).
+   l. LM training at internlm2-1.8b's published widths (``path_train``:
+      the same CONFIG and weights) through ``repro_torch.launch.train.main``:
+      8 AdamW(3e-3) steps of batch 8 × 2,049 tokens (2,048 positions:
+      two attention chunks), each layer recomputed in its backward
+      (``remat``), under the allocator's expandable segments
+      (``expandable_segments``). Checks: internlm2 (AdamW) and kimi-k2
+      (Adafactor, MoE) at SMOKE widths, three steps of main on the card
+      and on the CPU (losses within ``TRAIN_SMOKE_RTOL``, parameters as
+      ``adamw_within`` bounds them), remat on == off bit for bit on the
+      card; every loss finite; step 0's loss against a float32 forward
+      of the same weights and batch (``LM_BF16_RTOL``); bf16 gradients of
+      one row of that batch against float32's (``TRAIN_GRAD_RTOL`` a
+      leaf, relative L2); the example's ``--hundred-m`` config
+      (80,032,256 parameters) run to step 50 with a checkpoint, restored
+      and run to 60, equal bit for bit (losses and every leaf of the
+      ``TrainState``) to 60 steps straight. Each step's wall and loss,
+      tokens/s, model TFLOP/s (``launch.steps.lm_train_flops``), peak
+      memory above the resident, one profiled step (idle share). It
+      launches no kernel of ours (checked).
 
    Every run is exact and every kernel of a path launched on it. Every
    plan a path runs is audited by ``repro_torch.analysis.check_plan``
@@ -244,8 +271,11 @@ Phases (every failure ends the run with a non-zero exit):
    ``plan_delta`` epochs, each plan in f's and h's service plan caches,
    g's mesh plan, and g's relabelled plan as the dense plan it is, with the mesh
    exchanges its caps build; each audit's seconds on a line of its own,
-   and any violation fails the run. A capture run (DegreeTriples and
-   Enumerate bundled, on path a's graph) and path c keep one superstep's operands of each kernel, on which each
+   and any violation fails the run. A capture run (DegreeTriples,
+   Enumerate and LocalVertexCount bundled, on path a's graph: its
+   DegreeTriples equal path a's, its Enumerate rows triangles of the
+   graph totalling the known count, its LocalVertexCount path i's bit
+   for bit) and path c keep one superstep's operands of each kernel, on which each
    kernel equals its plain version; on the counting-set operands
    ``hist_add`` and ``hist_max`` equal their plain versions and together
    equal ``fold_count_max``. On path a, fold_count_max's launches are
@@ -264,7 +294,7 @@ Phases (every failure ends the run with a non-zero exit):
    wedge_intersect at rank 0's largest launch on path g, with path g's
    launches; fold_count_max on path a's largest fold with rows of 16
    words (no real call); every row with the kernel's launches on each
-   path a–k (paths j and k: 0). On lines before the
+   path a–l (paths j, k and l: 0). On lines before the
    JSON: wedge_intersect at the fullest and at the last pull superstep,
    the fold_count_max launch bins, and the same measures of
    fold_count_max at its typical fold.
@@ -279,6 +309,7 @@ import contextlib
 import dataclasses
 import importlib
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -292,11 +323,15 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 FULL_SCALE = 18                # R-MAT scale of the full-size deployment
 FULL_TRIANGLES = 82_824_164    # its triangle count (the cell's known count)
-# path a's push-only runs, path e's delta stream and path f's service run
-# on the same R-MAT this many scales below the deployment, for the
-# script's time (its limit is the same while paths are added): their
-# push-only supersteps are host-bound
+# path e's delta stream and path g's DegreeTriples run on the same R-MAT
+# this many scales below, path a's push-only runs and the service of paths
+# f and h PUSH_CUT_SCALES below, for the script's time (its limit is the
+# same while paths are added): push-only supersteps are host-bound
 CUT_SCALES = 2
+PUSH_CUT_SCALES = 3
+# path b's bundle runs on the same R-MAT this many scales below, for the
+# script's time: at 18 it was its longest path (185-189 s)
+BUNDLE_CUT_SCALES = 1
 PROFILE_PULL_STEPS = 16        # pull supersteps in a profiled window
 INT32_MIN = -(2**31)
 
@@ -359,11 +394,13 @@ PATH_KERNELS = {
     "downstream": ("wedge_check", "wedge_intersect", "hist_add"),
     "zoo": (),
     "lm": (),
+    "train": (),
 }
 # the letters PERF.md gives the full-size paths
 PATH_LETTERS = {"first": "a", "bundle": "b", "split": "c", "hub": "d",
                 "delta": "e", "served": "f", "mesh": "g", "served_mesh": "h",
-                "downstream": "i", "zoo": "j", "lm": "k"}
+                "downstream": "i", "zoo": "j", "lm": "k",
+                "train": "l"}
 REPORTED_PATH = {"wedge_check": "first", "wedge_intersect": "first",
                  "fold_count_max": "first", "ring_set": "bundle",
                  "hist_add": "bundle", "hist_max": "bundle",
@@ -1886,7 +1923,8 @@ def phase_full(torch, report, scale, dev):
     from repro_torch.core.pushpull import plan_engine
     from repro_torch.core.ref import count_triangles_ref
     from repro_torch.core.surveys import (DegreeTriples, Enumerate,
-                                          SurveyBundle, TriangleCount)
+                                          LocalVertexCount, SurveyBundle,
+                                          TriangleCount)
     from repro_torch.graphs import generators
     from repro_torch.kernels.fold_scatter import ops as fs
     from repro_torch.kernels.hist import ops as hist
@@ -1901,9 +1939,12 @@ def phase_full(torch, report, scale, dev):
     t0 = time.perf_counter()
     base = generators.rmat(scale, 16, seed=0, a=0.57, b=0.19, c=0.19)
     g = base.with_degree_meta()
-    g_lab = survey_meta(base, seed=1)
+    g_lab = survey_meta(generators.rmat(scale - BUNDLE_CUT_SCALES, 16, seed=0,
+                                        a=0.57, b=0.19, c=0.19), seed=1)
     g_cut = generators.rmat(scale - CUT_SCALES, 16, seed=0, a=0.57, b=0.19,
                             c=0.19).with_degree_meta()
+    g_push = generators.rmat(scale - PUSH_CUT_SCALES, 16, seed=0, a=0.57,
+                             b=0.19, c=0.19).with_degree_meta()
     full["gen_s"] = time.perf_counter() - t0
     full["vertices"], full["edges"] = g.n, g.m
     expect = FULL_TRIANGLES if scale == FULL_SCALE else count_triangles_ref(g)
@@ -1912,6 +1953,13 @@ def phase_full(torch, report, scale, dev):
     full["cut"] = dict(scale=scale - CUT_SCALES, vertices=g_cut.n,
                        edges=g_cut.m, triangles=expect_cut,
                        count_s=time.perf_counter() - t0)
+    expect_push = count_triangles_sparse(g_push)
+    full["push_cut"] = dict(scale=scale - PUSH_CUT_SCALES, vertices=g_push.n,
+                            edges=g_push.m, triangles=expect_push)
+    expect_b = count_triangles_sparse(g_lab)
+    full["bundle_cut"] = dict(scale=scale - BUNDLE_CUT_SCALES,
+                              vertices=g_lab.n, edges=g_lab.m,
+                              triangles=expect_b)
     sync(torch, dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -1921,10 +1969,12 @@ def phase_full(torch, report, scale, dev):
     full["shard_s"] = time.perf_counter() - t0
     full["wedges_total"] = rstats.wedges_total
     full["e_cap"], full["d_plus_max"] = gr.e_cap, gr.d_plus_max
-    gr_cut, _ = shard_dodgr(g_cut, S, device=dev)
+    gr_push, _ = shard_dodgr(g_push, S, device=dev)
     log(f"full: rmat{scale} {g.n} vertices {g.m} edges, |W+|={rstats.wedges_total}, "
         f"e_cap={gr.e_cap} d+max={gr.d_plus_max}; gen {full['gen_s']:.1f} s "
-        f"shard {full['shard_s']:.1f} s; push-only runs and path e on "
+        f"shard {full['shard_s']:.1f} s; push-only runs on "
+        f"rmat{scale - PUSH_CUT_SCALES} ({g_push.m} edges, {expect_push} "
+        f"triangles) and paths f and h; path e and g's DegreeTriples on "
         f"rmat{scale - CUT_SCALES} ({g_cut.m} edges, {expect_cut} triangles)")
 
     def plan(gg, survey, mode):
@@ -1938,7 +1988,7 @@ def phase_full(torch, report, scale, dev):
                           ("DegreeTriples", DegreeTriples(capacity=4096))):
         for mode in ("push", "pushpull"):
             cfg, plan_s, reports[(sname, mode)] = plan(
-                g_cut if mode == "push" else g, survey, mode)
+                g_push if mode == "push" else g, survey, mode)
             plans[(sname, mode)] = (survey, cfg, plan_s)
             log(f"plan {sname} {mode}: {plan_s:.1f} s, "
                 f"push steps {cfg.n_push_steps}, pull steps {cfg.n_pull_steps}, "
@@ -1954,7 +2004,7 @@ def phase_full(torch, report, scale, dev):
             fn = survey_push_only if mode == "push" else survey_push_pull
             sync(torch, dev)
             t0 = time.perf_counter()
-            res, st = fn(gr_cut if mode == "push" else gr, survey, cfg)
+            res, st = fn(gr_push if mode == "push" else gr, survey, cfg)
             sync(torch, dev)
             wall = time.perf_counter() - t0
             results[(sname, mode)] = (res, st)
@@ -1975,8 +2025,8 @@ def phase_full(torch, report, scale, dev):
             or dev.type != "cuda", "fold_count_max bins miss launches")
     full["max_memory_allocated"] = (torch.cuda.max_memory_allocated()
                                     if dev.type == "cuda" else 0)
-    del gr_cut
-    for mode, want in (("push", expect_cut), ("pushpull", expect)):
+    del gr_push
+    for mode, want in (("push", expect_push), ("pushpull", expect)):
         tc = results[("TriangleCount", mode)][0]
         require(tc == want, f"{mode} triangle count {tc} != {want}")
         total = counting_total(results[("DegreeTriples", mode)][0])
@@ -1984,7 +2034,7 @@ def phase_full(torch, report, scale, dev):
     for key, (_, st) in results.items():
         require(st["exact"], f"{key} inexact")
     tc_pp = full["triangles"] = results[("TriangleCount", "pushpull")][0]
-    log(f"full: {tc_pp} triangles ({expect_cut} push-only on the cut graph); "
+    log(f"full: {tc_pp} triangles ({expect_push} push-only on the cut graph); "
         f"launches {launches['first']}; peak memory "
         f"{full['max_memory_allocated'] / 2**30:.2f} GiB")
     if dev.type == "cuda":
@@ -2035,7 +2085,7 @@ def phase_full(torch, report, scale, dev):
     full["bundle_max_memory_allocated"] = (torch.cuda.max_memory_allocated()
                                            if dev.type == "cuda" else 0)
     full["bundle_stats"] = st_b
-    check_bundle(res_b, st_b, g_lab, expect, full)
+    check_bundle(res_b, st_b, g_lab, expect_b, full)
     log(f"survey bundle pushpull: {full['bundle_s']:.2f} s, launches "
         f"{launches['bundle']}, peak memory "
         f"{full['bundle_max_memory_allocated'] / 2**30:.2f} GiB; "
@@ -2074,14 +2124,13 @@ def phase_full(torch, report, scale, dev):
         torch, dev, full, g, S, expect,
         results[("DegreeTriples", "pushpull")][0], launches,
         g_cut, expect_cut)
-    rows_f, f_out = path_served(torch, dev, full, g_cut, S, expect_cut,
+    rows_f, f_out = path_served(torch, dev, full, g_push, S, expect_push,
                                 launches)
     lane_rows += rows_f
     lane_rows += path_mesh(torch, dev, full, g, gr, expect, plans, reports,
-                           results, launches)
-    path_served_mesh(torch, dev, full, g_cut, MESH_FULL_S, f_out, launches)
-    path_downstream(torch, dev, full, g, gr, S, res_b["LocalVertexCount"],
-                    launches)
+                           results, launches, g_cut, expect_cut)
+    path_served_mesh(torch, dev, full, g_push, MESH_FULL_S, f_out, launches)
+    counts_i = path_downstream(torch, dev, full, g, gr, S, launches)
     t0 = time.perf_counter()
     _, launches["zoo"] = run_path(torch, dev, "zoo",
                                   lambda: path_zoo(torch, dev, full))
@@ -2096,23 +2145,38 @@ def phase_full(torch, report, scale, dev):
     require(not any(launches["lm"].values()),
             f"path k launched a kernel of the survey path: {launches['lm']}")
     log(f"path k: {full['lm']['wall_s']:.2f} s, no kernel of ours launched")
+    t0 = time.perf_counter()
+    with expandable_segments(torch, dev):
+        _, launches["train"] = run_path(torch, dev, "train",
+                                        lambda: path_train(torch, dev, full))
+    full["train"]["wall_s"] = time.perf_counter() - t0
+    require(not any(launches["train"].values()),
+            f"path l launched a kernel of the survey path: {launches['train']}")
+    log(f"path l: {full['train']['wall_s']:.2f} s, no kernel of ours launched")
 
-    # capture one superstep's inputs of each kernel: DegreeTriples and
-    # Enumerate bundled on path a's graph run wedge_check, wedge_intersect,
-    # fold_count_max and ring_set
+    # capture one superstep's inputs of each kernel: DegreeTriples,
+    # Enumerate and LocalVertexCount bundled on path a's graph run
+    # wedge_check, wedge_intersect, fold_count_max and ring_set
     recs = [Recorder(wc, "wedge_check", torch),
             Recorder(wi, "wedge_intersect", torch),
             Recorder(fs, "fold_count_max", torch),
             Recorder(fs, "ring_set", torch)]
     survey_dt, cfg_dt, _ = plans[("DegreeTriples", "pushpull")]
-    cap_bundle = SurveyBundle([survey_dt, Enumerate(capacity=2**20)])
+    cap_bundle = SurveyBundle([survey_dt, Enumerate(capacity=2**20),
+                               LocalVertexCount(g.n)])
     res_cap, _ = survey_push_pull(gr, cap_bundle, cfg_dt)
     for r in recs:
         r.restore()
     require(res_cap["DegreeTriples"] == results[("DegreeTriples", "pushpull")][0],
             "capture run's DegreeTriples differs from the first path's")
-    require(same(res_cap["Enumerate"], res_b["Enumerate"]),
-            "capture run's Enumerate differs from the bundle's")
+    en = res_cap["Enumerate"]
+    require(en["total_found"] == expect
+            and EdgeIndex(g).triangles_real(en["triangles"]),
+            "capture run's Enumerate: a row is not a triangle, or the total "
+            f"{en['total_found']} != {expect}")
+    require(np.array_equal(np.asarray(res_cap["LocalVertexCount"]),
+                           np.asarray(counts_i)),
+            "path i's LocalVertexCount != the capture run's bundle member")
     fold_args, fold_kw = recs[2].largest
     slots, amounts, rows, cap = fold_args
     captured = {
@@ -2718,47 +2782,64 @@ def path_served_mesh(torch, dev, full, g, S, f_out, launches):
 
 
 def path_mesh(torch, dev, full, g, gr, expect, plans, reports, results,
-              launches):
+              launches, g_cut, expect_cut):
     """Full-size path g, the mesh transport: path a's graph ``g`` and its
     stacked shards ``gr`` (saved once, one file per rank, each rank
     loading its slice), S=8 rank processes sharing the card over gloo
     (every collective staged through host memory). TriangleCount
     push-pull on a ``transport="mesh"`` plan (ragged caps, scheduled
     rounds) equals path a's count, the known ``expect``; DegreeTriples
-    push-pull on path a's dense plan relabelled mesh (uniform caps:
-    all_to_all_single) equals path a's bit for bit. The stats within
+    push-pull on ``g_cut`` (``CUT_SCALES`` smaller, for the script's
+    time) on a dense plan relabelled mesh (uniform caps:
+    all_to_all_single) equals the stacked run of the dense plan on the
+    card bit for bit, and totals ``expect_cut``. The stats within
     their float32 rounding of the plan; the bytes handed to the
     collectives reconcile with the plan (``check_mesh_bytes``); both
     plans audited (``audit_plan``). Over nccl too where there is a card
     per rank. Returns rows of rank 0's largest wedge_check and
     wedge_intersect launches (as ``lane_rows``)."""
+    from repro_torch.core.dodgr import shard_dodgr
+    from repro_torch.core.engine import survey_push_pull
     from repro_torch.core.pushpull import plan_engine
     from repro_torch.launch.mesh import RankRun, save_slices
 
     S = MESH_FULL_S
     require(gr.S == S, f"path g needs path a's {S} shards")
-    mesh = full["mesh"] = dict(S=S, backend="gloo")
+    mesh = full["mesh"] = dict(S=S, backend="gloo",
+                               degree_triples_scale=int(np.log2(g_cut.n)))
     survey_tc, _, _ = plans[("TriangleCount", "pushpull")]
-    survey_dt, cfg_dt, _ = plans[("DegreeTriples", "pushpull")]
+    survey_dt, _, _ = plans[("DegreeTriples", "pushpull")]
     t0 = time.perf_counter()
     cfg_tc, rep_tc = plan_engine(g, S, survey_tc, mode="pushpull",
                                  push_cap=4096, pull_q_cap=16,
                                  transport="mesh")
     mesh["plan_s"] = time.perf_counter() - t0
-    cfg_dt = dataclasses.replace(cfg_dt, transport="mesh")
-    rep_dt = reports[("DegreeTriples", "pushpull")]
+    dense_dt, rep_dt = plan_engine(g_cut, S, survey_dt, mode="pushpull",
+                                   push_cap=4096, pull_q_cap=16)
+    cfg_dt = dataclasses.replace(dense_dt, transport="mesh")
     audit_plan(full, "g TriangleCount pushpull mesh", cfg_tc, rep_tc)
     audit_plan(full, "g DegreeTriples pushpull dense relabelled mesh",
                cfg_dt, rep_dt)
     wd = mesh_workdir("full")
     t0 = time.perf_counter()
     save_slices(gr, wd / "slices")
+    gr_cut, _ = shard_dodgr(g_cut, S, device=dev)
+    save_slices(gr_cut, wd / "slices_cut")
     mesh["save_s"] = time.perf_counter() - t0
+    # the DegreeTriples yardstick: the dense plan stacked on the card
+    t0 = time.perf_counter()
+    dt_cut, st_cut = survey_push_pull(gr_cut, survey_dt, dense_dt)
+    sync(torch, dev)
+    mesh["degree_triples_stacked_s"] = time.perf_counter() - t0
+    require(st_cut["exact"] and counting_total(dt_cut) == expect_cut,
+            f"path g: stacked DegreeTriples on rmat{int(np.log2(g_cut.n))} "
+            f"totals {counting_total(dt_cut)}, not {expect_cut}")
+    del gr_cut
     src = str(wd / "slices" / "slice{rank}.pt")
     jobs = [dict(kind="survey", gr=src, survey=survey_tc, cfg=cfg_tc,
                  entry="pushpull", capture=("wedge_check", "wedge_intersect")),
-            dict(kind="survey", gr=src, survey=survey_dt, cfg=cfg_dt,
-                 entry="pushpull")]
+            dict(kind="survey", gr=str(wd / "slices_cut" / "slice{rank}.pt"),
+                 survey=survey_dt, cfg=cfg_dt, entry="pushpull")]
     mesh["schedule"] = dict(
         push=(rep_tc.sched_push_rounds, rep_tc.sched_push_slots,
               rep_tc.naive_push_rounds, rep_tc.naive_push_slots),
@@ -2783,11 +2864,13 @@ def path_mesh(torch, dev, full, g, gr, expect, plans, reports, results,
                 "the parent launched a kernel during path g")
         summary = mesh_summary(ranks, {"TriangleCount": 0, "DegreeTriples": 1})
         for i, name in enumerate(("TriangleCount", "DegreeTriples")):
-            want = results[(name, "pushpull")][0]
+            want, total_want = ((results[(name, "pushpull")][0], expect),
+                                (dt_cut, expect_cut))[i]
             outs = [r["outputs"][i] for r in ranks]
             for r, o in enumerate(outs):
                 tag = f"path g {backend} {name} rank {r}"
-                require(same(o["result"], want), f"{tag}: != path a's")
+                require(same(o["result"], want),
+                        f"{tag}: != the stacked run's")
                 require(o["stats"]["exact"], f"{tag}: inexact")
             cfg, rep = ((cfg_tc, rep_tc), (cfg_dt, rep_dt))[i]
             summary[name]["bytes_reconciled"] = check_mesh_bytes(
@@ -2799,9 +2882,9 @@ def path_mesh(torch, dev, full, g, gr, expect, plans, reports, results,
                              adds_push), f"path g {name}: pushed wedges != plan")
             require(f32_near(st["pull_requests"], rep.pushpull_requests,
                              adds_pull), f"path g {name}: pull requests != plan")
-            require(f32_near(st["tris_push"] + st["tris_pull"], expect,
+            require(f32_near(st["tris_push"] + st["tris_pull"], total_want,
                              adds_push + adds_pull),
-                    f"path g {name}: tris_push + tris_pull != {expect}")
+                    f"path g {name}: tris_push + tris_pull != {total_want}")
             for k, vol in (("wire_push_words", rep.wire_push_bytes),
                            ("wire_req_words", rep.wire_req_bytes),
                            ("wire_reply_words", rep.wire_reply_bytes)):
@@ -2852,7 +2935,9 @@ def path_mesh(torch, dev, full, g, gr, expect, plans, reports, results,
 # ---------------------------------------------------------------------------
 # the examples phase and path i: the paper's downstream loop
 
-DOWNSTREAM_STEPS = 60     # training steps of each run on path i (the example's)
+# training steps of each run on path i (the example's): at 20 its losses
+# have not yet fallen (the median of steps 10-19 above step 0's on the card)
+DOWNSTREAM_STEPS = 60
 
 
 def phase_examples(torch, report, dev):
@@ -2995,11 +3080,12 @@ def downstream_witness(torch, dev, g, counts, cfg, first_loss) -> dict:
     return out
 
 
-def path_downstream(torch, dev, full, g, gr, S, lvc_bundle, launches):
+def path_downstream(torch, dev, full, g, gr, S, launches):
     """Path i, the paper's downstream loop at full width: the GNN
     example's ``run`` on path a's graph and shards — a push-pull
-    LocalVertexCount survey (path a's plan parameters) whose counts equal
-    path b's bundle member bit for bit, then SchNet at
+    LocalVertexCount survey (path a's plan parameters; its counts are
+    returned, for the capture run to hold them bit for bit to a bundle's
+    member on the same graph), then SchNet at
     ``configs/schnet.py``'s published widths (3 interactions, 64 wide, 300
     Gaussian bases, cutoff 10; node features 2 and 3, two classes) trained
     full batch over every directed edge by the port's AdamW, once on
@@ -3020,8 +3106,6 @@ def path_downstream(torch, dev, full, g, gr, S, lvc_bundle, launches):
                         steps=DOWNSTREAM_STEPS, push_cap=4096, pull_q_cap=16))
     wall = time.perf_counter() - t0
     peak = peak_memory(torch, dev)
-    require(np.array_equal(np.asarray(out["counts"]), np.asarray(lvc_bundle)),
-            "path i's LocalVertexCount != path b's bundle member")
     require(out["survey_stats"]["exact"], "path i's survey inexact")
     runs = {}
     for r in ("base", "tri"):
@@ -3049,8 +3133,7 @@ def path_downstream(torch, dev, full, g, gr, S, lvc_bundle, launches):
         max_memory_allocated=peak, runs=runs, gain=out["gain"],
         witness=witness,
         counts_sum=int(np.asarray(out["counts"]).astype(np.int64).sum()))
-    log(f"path i: LocalVertexCount push-pull {out['survey_s']:.2f} s == path "
-        f"b's bit for bit; SchNet 3x64, 300 bases over {2 * g.m} edges, "
+    log(f"path i: LocalVertexCount push-pull {out['survey_s']:.2f} s; SchNet 3x64, 300 bases over {2 * g.m} edges, "
         f"{DOWNSTREAM_STEPS} steps a run: " + "; ".join(
             f"{r} loss {v['first_loss']:.4f} -> {v['loss']:.4f} (median of "
             f"the last {expected.FALL_STEPS} {v['last_median_loss']:.4f}), accuracy "
@@ -3072,6 +3155,7 @@ def path_downstream(torch, dev, full, g, gr, S, lvc_bundle, launches):
         f"{witness['adamw_max_abs_err']:.2e} (atol {WITNESS_PARAM_ATOL}); "
         f"{witness['wall_s']:.2f} s, peak "
         f"{witness['max_memory_allocated'] / 2**30:.2f} GiB")
+    return out["counts"]
 
 
 # ---------------------------------------------------------------------------
@@ -3489,6 +3573,324 @@ def path_lm(torch, dev, full, widths="CONFIG"):
             f"step {i} {c['rel_err']:.2e} (gap {c['min_gap']:.2e})"
             for i, c in checks.items())
         + f" (rtol {LM_CACHE_RTOL}); float32 checks {out['float32_s']:.2f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# path l: LM training at internlm2-1.8b's published widths
+
+TRAIN_ARCH = "internlm2-1.8b"
+TRAIN_BATCH, TRAIN_SEQ = 8, 2049   # 2,049 tokens: 2,048 positions, two chunks
+TRAIN_STEPS = 8            # full-width AdamW steps through launch.train.main
+TRAIN_SMOKE_ARCHS = ("internlm2-1.8b", "kimi-k2-1t-a32b")   # AdamW, Adafactor
+TRAIN_SMOKE_STEPS = 3
+# SMOKE widths in float32, card vs CPU, the weights each drew by the twin
+# (within 2.4e-7 of each other): losses of the largest, parameters of
+# each leaf's largest (AdamW's as adamw_within bounds them)
+TRAIN_SMOKE_RTOL = 1e-5
+# bf16 vs float32 gradients of one row of the first batch at the initial
+# weights, each leaf's relative L2 error (a CPU rehearsal at 6 layers, d
+# 512, 1,024 positions: 0.53e-2 to 1.40e-2)
+TRAIN_GRAD_RTOL = 5e-2
+# the restart: run A steps 0-49 with a checkpoint at 50, run B restores it
+# and runs to 60, run C 60 steps straight (the example's --hundred-m config)
+RESTART_AT, RESTART_END = 50, 60
+
+
+@contextlib.contextmanager
+def expandable_segments(torch, dev):
+    """The caching allocator's expandable segments inside the block, as
+    ``launch.train`` runs with them (``PYTORCH_CUDA_ALLOC_CONF``): a
+    full-width step's loss allocates and frees [8, 2,048, 92,544] float32
+    tensors among smaller ones, and fixed segments split by the smaller
+    ones leave no room for the next large one (on an H100, 34 GiB reserved
+    and free, none of it usable). The cache is emptied on the way in and
+    out, so the segments made inside are the only expandable ones."""
+    if dev.type != "cuda":
+        yield
+        return
+    settings = (getattr(torch._C, "_accelerator_setAllocatorSettings", None)
+                or torch.cuda.memory._set_allocator_settings)
+    torch.cuda.empty_cache()
+    settings("expandable_segments:True")
+    try:
+        yield
+    finally:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        settings("expandable_segments:False")
+
+
+def lm_grads(torch, cfg, params, tokens):
+    """The loss and the gradient tree of ``loss_fn`` at ``params``."""
+    from repro_torch.models import transformer as TF
+    from repro_torch.train.trainer import value_and_grad
+
+    loss, _, grads = value_and_grad(lambda p, b: TF.loss_fn(cfg, p, b),
+                                    params, tokens)
+    return loss, grads
+
+
+def adamw_within(torch, got, want, g1, steps, lr, rtol, eps=1e-8) -> dict:
+    """Parameters after ``steps`` AdamW steps (``g1``: the reference's
+    first gradient): each element within ``rtol`` of its leaf's largest
+    |p|, plus lr × steps × √steps × rtol × G / (|g₁| + eps), G the leaf's
+    largest |g₁|. AdamW divides each step by the gradient's root mean
+    square (at step t at least |g₁| / √t), so an element whose first
+    gradient is near zero turns a gradient's rounding (``rtol`` of G) into
+    up to lr a step. The worst element's share of its bound."""
+    worst = 0.0
+    for a, b, g in zip(got, want, g1):
+        a, b, g = a.double().cpu(), b.double().cpu(), g.double().cpu().abs()
+        bound = (rtol * b.abs().max()
+                 + lr * steps * steps ** 0.5 * rtol * g.max() / (g + eps))
+        worst = max(worst, float(((a - b).abs() / bound).max()))
+    return dict(worst_share=worst, ok=worst <= 1.0)
+
+
+def train_smoke_check(torch, dev) -> dict:
+    """internlm2 (AdamW) and kimi-k2 (Adafactor, MoE) at SMOKE widths in
+    float32: ``TRAIN_SMOKE_STEPS`` steps through ``launch.train.main`` on
+    the CPU and on ``dev``: the losses within ``TRAIN_SMOKE_RTOL`` of the
+    largest, the parameters as :func:`adamw_within` says (Adafactor's
+    within ``TRAIN_SMOKE_RTOL`` of each leaf's largest); and on ``dev``
+    the gradients with ``remat`` on equal to those with it off, bit for
+    bit."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import lm_batch
+    from repro_torch.launch import train
+    from repro_torch.models import threefry
+    from repro_torch.models import transformer as TF
+    from repro_torch.train.optimizer import tree_leaves
+
+    cpu = torch.device("cpu")
+    out = {}
+    for arch in TRAIN_SMOKE_ARCHS:
+        mod = get_arch(arch)
+        argv = ["--arch", arch, "--smoke", "--steps", str(TRAIN_SMOKE_STEPS),
+                "--batch", "4", "--seq", "65", "--log-every", "1"]
+        runs = []
+        for d in (cpu, dev):
+            keep = {}
+            with contextlib.redirect_stdout(io.StringIO()):
+                train.main(argv + ["--device", str(d)], keep=keep)
+            runs.append(keep)
+        ref, got = runs
+        l_ref = torch.tensor(ref["losses"], dtype=torch.float64)
+        l_got = torch.tensor(got["losses"], dtype=torch.float64)
+        row = out[arch] = dict(
+            losses=got["losses"],
+            loss_rel_err=float((l_got - l_ref).abs().max() / l_ref.abs().max()))
+        want_p = tree_leaves(ref["state"].params)
+        got_p = tree_leaves(got["state"].params)
+        cfg = mod.SMOKE
+        if getattr(mod, "OPTIMIZER", "adamw") == "adamw":
+            # main's first gradient, on the CPU
+            _, g1 = lm_grads(torch, cfg, TF.init_params(
+                cfg, threefry.prng_key(0), cpu), lm_batch(0, 0, 4, 65,
+                                                          cfg.vocab, cpu))
+            row["params"] = adamw_within(
+                torch, got_p, want_p, tree_leaves(g1), TRAIN_SMOKE_STEPS,
+                3e-3, TRAIN_SMOKE_RTOL)
+        else:
+            worst = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                        for a, b in zip(got_p, want_p))
+            row["params"] = dict(worst_rel_err=worst,
+                                 ok=worst <= TRAIN_SMOKE_RTOL)
+        require(row["loss_rel_err"] <= TRAIN_SMOKE_RTOL and row["params"]["ok"],
+                f"path l {arch} SMOKE card vs CPU: {row}")
+        # remat on and off: the same gradients, bit for bit
+        params = TF.init_params(cfg, threefry.prng_key(0), dev)
+        tokens = lm_batch(0, 0, 4, 65, cfg.vocab, dev)
+        grads = [tree_leaves(lm_grads(torch, dataclasses.replace(
+            cfg, remat=r), params, tokens)[1]) for r in (True, False)]
+        row["remat_bitwise"] = all(torch.equal(a, b) for a, b in zip(*grads))
+        require(row["remat_bitwise"], f"path l {arch}: remat changes the "
+                "gradients")
+    return out
+
+
+def restart_check(torch, dev, cfg) -> dict:
+    """``cfg`` (the example's ``--hundred-m`` config) through
+    ``launch.train.main`` with the example's flags on ``dev``: run A to
+    ``RESTART_AT`` with a checkpoint there, run B restoring it
+    (``--restore``) to ``RESTART_END``, run C straight to
+    ``RESTART_END``; B's losses and final ``TrainState`` equal C's bit for
+    bit."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.checkpoint.manager import path_leaves
+    from repro_torch.examples import train_lm
+    from repro_torch.launch import train
+
+    out = dict(params=cfg.n_params)
+    with tempfile.TemporaryDirectory() as d, train_lm.as_smoke(cfg):
+        runs = {}
+        for run, steps, ckpt, extra in (("A", RESTART_AT, d, []),
+                                        ("B", RESTART_END, d, ["--restore"]),
+                                        ("C", RESTART_END, "", [])):
+            keep, buf = {}, io.StringIO()
+            argv = train_lm.driver_argv(steps, True, ckpt) + extra + [
+                "--device", str(dev)]
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                train.main(argv, keep=keep)
+            out[f"{run}_s"] = time.perf_counter() - t0
+            runs[run] = keep
+            if run == "B":
+                out["restored_line"] = next(
+                    ln for ln in buf.getvalue().splitlines()
+                    if ln.startswith("restored step"))
+        out["checkpoint_bytes"] = sum(
+            os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(
+                os.path.join(d, f"step_{RESTART_END:010d}")) for f in fs)
+    b, c = runs["B"], runs["C"]
+    out["losses_equal"] = b["losses"] == c["losses"][RESTART_AT:]
+    leaves_b = list(path_leaves(b["state"]))
+    leaves_c = list(path_leaves(c["state"]))
+    out["state_equal"] = (
+        [k for k, _ in leaves_b] == [k for k, _ in leaves_c]
+        and all(torch.equal(a, x) for (_, a), (_, x) in zip(leaves_b, leaves_c)))
+    out["leaves"] = len(leaves_b)
+    out["losses"] = c["losses"]
+    require(out["losses_equal"] and out["state_equal"],
+            f"path l restart: B != C (losses {b['losses']} vs "
+            f"{c['losses'][RESTART_AT:]}, state equal {out['state_equal']})")
+    return out
+
+
+def path_train(torch, dev, full, widths="CONFIG"):
+    """Path l: LM training at internlm2-1.8b's published widths (bf16, 24
+    layers, d 2,048, GQA 16 / 8 heads of 128, d_ff 8,192, vocab 92,544;
+    weights from ``threefry.prng_key(0)`` drawn on the card) through
+    ``repro_torch.launch.train.main``: ``TRAIN_STEPS`` AdamW(3e-3) steps
+    of batch ``TRAIN_BATCH`` × ``TRAIN_SEQ`` tokens (``lm_batch(0, i,
+    ...)``), each layer recomputed in the backward (``remat``). Checks:
+    SMOKE card vs CPU (:func:`train_smoke_check`), every loss finite, step
+    0's loss against a float32 forward of the same weights and batch
+    (``LM_BF16_RTOL``), the bf16 gradients of one row of that batch
+    against float32's (``TRAIN_GRAD_RTOL`` a leaf), and a restart bit for
+    bit (:func:`restart_check`). Records: each step's wall and loss,
+    tokens/s, model TFLOP/s (``launch.steps.lm_train_flops``), peak memory
+    above the resident, one profiled step. ``widths="SMOKE"`` trains the
+    SMOKE model for a CPU rehearsal."""
+    import contextlib
+    import io
+
+    from repro_torch.checkpoint.manager import path_leaves
+    from repro_torch.configs import get_arch
+    from repro_torch.data import lm_batch
+    from repro_torch.examples import train_lm
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import lm_train_flops
+    from repro_torch.models import threefry
+    from repro_torch.models import transformer as TF
+    from repro_torch.train import adamw, make_train_step
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+
+    cfg = getattr(get_arch(TRAIN_ARCH), widths)
+    B, S = TRAIN_BATCH, TRAIN_SEQ - 1
+    out = full["train"] = dict(arch=TRAIN_ARCH, widths=widths, batch=B,
+                               positions=S, steps=TRAIN_STEPS,
+                               params=cfg.n_params)
+    t0 = time.perf_counter()
+    out["smoke"] = train_smoke_check(torch, dev)
+    out["smoke_s"] = time.perf_counter() - t0
+    log("path l: SMOKE card vs CPU through launch.train.main, "
+        + ", ".join(f"{a}: losses {r['loss_rel_err']:.2e}, parameters "
+                    f"{r['params']}, remat on == off {r['remat_bitwise']}"
+                    for a, r in out["smoke"].items())
+        + f" (rtol {TRAIN_SMOKE_RTOL}); {out['smoke_s']:.2f} s")
+
+    # the training run, through the entry point
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+            str(B), "--seq", str(TRAIN_SEQ), "--log-every", "1", "--device",
+            str(dev)]
+    argv += ["--smoke"] if widths == "SMOKE" else []
+    base = memory_reset(torch, dev)
+    buf, keep = io.StringIO(), {}
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        train.main(argv, keep=keep)
+    out["main_s"] = time.perf_counter() - t0
+    out["resident_bytes"] = base
+    out["peak_bytes"] = peak_memory(torch, dev) - base
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"path l train: {line}")
+    walls = [float(m.group(1)) / 1e3 for m in
+             (re.match(r"step +\d+ loss [\d.]+ +([\d.]+) ms", ln) for ln in lines)
+             if m]
+    losses = out["losses"] = keep["losses"]
+    require(len(walls) == len(losses) == TRAIN_STEPS
+            and lines[-1].startswith("done: loss "),
+            f"path l: main printed {lines}")
+    require(all(np.isfinite(losses)), f"path l: losses {losses} not finite")
+    out["step_s"] = walls
+    median = out["median_step_s"] = statistics.median(walls[1:])
+    out["flops_per_step"] = lm_train_flops(cfg, B, S)
+    out["tok_s"] = B * S / median
+    out["tflops"] = out["flops_per_step"] / median / 1e12
+
+    # one more step of the final state, profiled
+    state = keep.pop("state")
+    step_fn = make_train_step(lambda p, b: TF.loss_fn(cfg, p, b), adamw(3e-3))
+    batch = lm_batch(0, TRAIN_STEPS, B, TRAIN_SEQ, cfg.vocab, dev)
+    if dev.type == "cuda":
+        out["profile"] = profile_run(torch, "path l train step",
+                                     lambda: step_fn(state, batch), top=12)
+    del state, keep, batch
+
+    # step 0's loss and gradients: bf16 against float32, the same weights
+    # (drawn again from the same key) and the first batch
+    t0 = time.perf_counter()
+    p16 = TF.init_params(cfg, threefry.prng_key(0), dev)
+    tokens = lm_batch(0, 0, B, TRAIN_SEQ, cfg.vocab, dev)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    p32 = tree_map(lambda t: t.float(), p16)
+    with torch.no_grad():
+        loss32 = float(TF.loss_fn(cfg32, p32, tokens)[0])
+    out["loss0_float32"] = loss32
+    out["loss0_rel_err"] = abs(losses[0] - loss32) / abs(loss32)
+    require(out["loss0_rel_err"] <= LM_BF16_RTOL,
+            f"path l: step 0's loss {losses[0]} vs float32 {loss32}")
+    _, g16 = lm_grads(torch, cfg, p16, tokens[:1])
+    _, g32 = lm_grads(torch, cfg32, p32, tokens[:1])
+    errs = out["grad_rel_l2"] = {
+        k: float((a.double() - b.double()).norm() / b.double().norm())
+        for (k, a), (_, b) in zip(path_leaves(g16), path_leaves(g32))}
+    del p16, p32, g16, g32
+    out["checks_s"] = time.perf_counter() - t0
+    require(max(errs.values()) <= TRAIN_GRAD_RTOL,
+            f"path l: bf16 vs float32 gradients {errs} > {TRAIN_GRAD_RTOL}")
+
+    t0 = time.perf_counter()
+    out["restart"] = restart_check(
+        torch, dev, train_lm.HUNDRED_M if widths == "CONFIG" else cfg)
+    out["restart_s"] = time.perf_counter() - t0
+    r = out["restart"]
+    log(f"path l: {TRAIN_ARCH} {widths} ({cfg.n_params} parameters), batch "
+        f"{B} × {S} positions, {TRAIN_STEPS} AdamW steps: losses "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; step walls {', '.join(f'{w:.4f}' for w in walls)} s, median "
+        f"{median:.4f} s ({out['tok_s']:.0f} tok/s, {out['tflops']:.2f} model "
+        f"TFLOP/s of {out['flops_per_step'] / 1e12:.2f} TFLOP a step); main "
+        f"{out['main_s']:.2f} s, peak {out['peak_bytes'] / 2**30:.2f} GiB "
+        f"above {base / 2**30:.2f} resident; step 0 vs float32 "
+        f"{out['loss0_rel_err']:.3e} (rtol {LM_BF16_RTOL}); bf16 vs float32 "
+        f"gradients of one row, relative L2 a leaf: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (rtol {TRAIN_GRAD_RTOL}); checks {out['checks_s']:.2f} s; "
+        f"restart ({r['params']} parameters, {r['checkpoint_bytes']} bytes a "
+        f"checkpoint): {r['restored_line']}, B == C bit for bit ({r['leaves']} "
+        f"leaves), runs A {r['A_s']:.2f} s, B {r['B_s']:.2f} s, C "
+        f"{r['C_s']:.2f} s")
     return out
 
 

@@ -71,10 +71,13 @@ class MoESpec:
 
 @dataclass(frozen=True)
 class LMConfig:
-    """The reference's ``LMConfig`` less its compile and sharding knobs
-    (``remat``, ``attn_shard``, ``moe_group_chunks``, ``scan_unroll``) and
+    """The reference's ``LMConfig`` less its sharding and compile knobs
+    (``attn_shard``, ``moe_group_chunks``, ``scan_unroll``) and
     ``attn_bias``: one card has no mesh to shard over, and the port's
-    models have no biases, as no published configuration does."""
+    models have no biases, as no published configuration does. ``remat``
+    stays: under autograd each layer's forward is recomputed in its
+    backward, as the reference's ``jax.checkpoint`` does, so a full-width
+    step keeps one layer's activations rather than every layer's."""
 
     name: str
     n_layers: int
@@ -90,6 +93,7 @@ class LMConfig:
     dtype: str = "bfloat16"               # activation/compute dtype
     param_dtype: str = "bfloat16"
     attn_chunk: int = 1024                # flash-style KV block size
+    remat: bool = True
 
     def __post_init__(self):
         if self.d_head == 0:

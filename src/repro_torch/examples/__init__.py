@@ -12,7 +12,7 @@ from __future__ import annotations
 import argparse
 
 NAMES = ("quickstart", "closure_survey", "label_survey", "multi_survey",
-         "hub_survey", "streaming_survey", "triangle_features_gnn")
+         "hub_survey", "streaming_survey", "triangle_features_gnn", "train_lm")
 
 
 def cli(main, doc: str):

@@ -1,9 +1,10 @@
 """The JAX twins' lines: the yardstick of the port's examples.
 
 ``LINES`` holds what each script of the JAX package's ``examples/``
-prints, and ``GNN_STEP_LOSSES`` the loss of every training step of
+prints, ``GNN_STEP_LOSSES`` the loss of every training step of
 ``examples/triangle_features_gnn.py`` (its degree-only run, then its run
-with the triangle feature). Both were recorded once, on a CPU, with
+with the triangle feature) and ``TRAIN_LM_STEP_LOSSES`` that of
+``examples/train_lm.py``. All were recorded once, on a CPU, with
 
     JAX_PLATFORMS=cpu PYTHONPATH=src python tools/record_example_lines.py
 
@@ -23,7 +24,9 @@ line for line on its survey line, in format on the rest, to the twin's
 loss at each of the first ``TRACE_STEPS`` steps within ``LOSS_TOL``
 (the steps before that spike), and to what the example shows: finite
 losses that fall (:func:`losses_fall`) and a positive triangle-feature
-gain.
+gain. The LM example (:data:`TRAIN_LM`) is held line for line with its
+timings masked, every step's loss within ``TRAIN_LM_LOSS_TOL`` of the
+twin's, and falling (:func:`check_train_lm`).
 """
 from __future__ import annotations
 
@@ -35,6 +38,11 @@ GNN = "triangle_features_gnn"
 TRACE_STEPS = 16      # training steps held to the twin's losses
 LOSS_TOL = 2e-3       # absolute, in nats
 FALL_STEPS = 10       # the last steps whose median loss must lie below the first
+TRAIN_LM = "train_lm"
+# every step's loss of the LM example, absolute, in nats: 200 AdamW steps
+# of internlm2's SMOKE model in float32 (CPU: within 2.4e-6 of the twin's)
+TRAIN_LM_LOSS_TOL = 1e-3
+PRINTED_LOSS_ULP = 1e-4   # a loss printed to four decimals
 _NUMBER = re.compile(r"[-+]?\d+(\.\d+)?")
 
 
@@ -73,9 +81,61 @@ def gnn_drift(numbers: dict) -> dict:
             for k, w, g in zip(keys, want, got)}
 
 
+def _train_lines(text: str) -> list[str]:
+    """The LM example's lines less the straggler watchdog's, which flag
+    one host's hiccups."""
+    return [ln for ln in text.splitlines() if not ln.startswith("[straggler]")]
+
+
+def check_train_lm(printed: str, numbers: dict, want_text: str,
+                   want_losses) -> list[str]:
+    """What differs between an LM training run (its printed lines and
+    ``numbers["losses"]``) and the twin's (``want_text``,
+    ``want_losses``): the first line exactly; the rest with their numbers
+    and spacing masked, the printed losses within ``TRAIN_LM_LOSS_TOL``
+    and the four-decimal rounding; every step's loss within
+    ``TRAIN_LM_LOSS_TOL``, finite, and the last tenth's mean below the
+    first's."""
+    name = TRAIN_LM
+    want, got = _train_lines(want_text), _train_lines(printed)
+    errs = []
+    if len(got) != len(want):
+        errs.append(f"{name}: {len(got)} lines printed, the twin's {len(want)}")
+    if got[:1] != want[:1]:
+        errs.append(f"{name} first line: {got[:1]} != {want[:1]}")
+    loss = re.compile(r"loss ([\d.]+)(?: → ([\d.]+))?")
+    for i, (g, w) in enumerate(zip(got, want)):
+        if " ".join(_masked(g).split()) != " ".join(_masked(w).split()):
+            errs.append(f"{name} line {i} format: {g!r} vs {w!r}")
+        mg, mw = loss.search(g), loss.search(w)
+        if mg and mw:
+            pairs = [(float(a), float(b)) for a, b in zip(mg.groups(), mw.groups())
+                     if a is not None and b is not None]
+            if any(not abs(a - b) <= TRAIN_LM_LOSS_TOL + PRINTED_LOSS_ULP
+                   for a, b in pairs):
+                errs.append(f"{name} line {i} losses: {g!r} vs {w!r}")
+    losses = numbers["losses"]
+    if len(losses) != len(want_losses):
+        errs.append(f"{name}: {len(losses)} steps, the twin's {len(want_losses)}")
+    gap = max((abs(a - b) for a, b in zip(losses, want_losses)), default=0.0)
+    if not gap <= TRAIN_LM_LOSS_TOL:
+        errs.append(f"{name}: step losses differ from the twin's by {gap} > "
+                    f"{TRAIN_LM_LOSS_TOL} (first at step "
+                    f"{first_step_past(losses, want_losses, TRAIN_LM_LOSS_TOL)})")
+    if not all(math.isfinite(x) for x in losses):
+        errs.append(f"{name}: a loss is not finite")
+    if not numbers["last"] < numbers["first"]:
+        errs.append(f"{name}: loss {numbers['first']} → {numbers['last']} "
+                    "did not fall")
+    return errs
+
+
 def check(name: str, printed: str, numbers: dict) -> list[str]:
     """What differs between a port example's run and its twin's lines
     (an empty list when nothing does)."""
+    if name == TRAIN_LM:
+        return check_train_lm(printed, numbers, LINES[name],
+                              TRAIN_LM_STEP_LOSSES)
     want, got = LINES[name].splitlines(), printed.splitlines()
     errs = []
     if len(got) != len(want):
@@ -207,6 +267,28 @@ LINES = {'closure_survey': 'temporal graph: 3000 users, 117571 timestamped edges
                      'final-epoch exchanged bytes: 1253860 incremental vs 3471296 recompute (2.8x '
                      'less)\n'
                      'modal closure time so far: 2^20 s\n',
+ 'train_lm': 'arch=internlm2-smoke params=0.4M vocab=512 layers=2\n'
+             'step     0 loss 6.6147  2561.9 ms       400 tok/s\n'
+             'step    10 loss 6.2749    75.5 ms     13564 tok/s\n'
+             'step    20 loss 5.7306    70.2 ms     14579 tok/s\n'
+             'step    30 loss 4.9563    68.3 ms     14989 tok/s\n'
+             'step    40 loss 4.3423    68.0 ms     15061 tok/s\n'
+             'step    50 loss 4.1968    87.2 ms     11737 tok/s\n'
+             'step    60 loss 4.0749    81.5 ms     12568 tok/s\n'
+             'step    70 loss 4.0571    89.2 ms     11479 tok/s\n'
+             'step    80 loss 4.0201    89.9 ms     11388 tok/s\n'
+             'step    90 loss 3.9761    72.2 ms     14192 tok/s\n'
+             'step   100 loss 3.9555    68.4 ms     14967 tok/s\n'
+             'step   110 loss 3.9710    68.0 ms     15068 tok/s\n'
+             'step   120 loss 3.9809    78.3 ms     13074 tok/s\n'
+             'step   130 loss 3.8999   107.0 ms      9571 tok/s\n'
+             'step   140 loss 3.9821    73.6 ms     13921 tok/s\n'
+             'step   150 loss 3.9549   116.9 ms      8756 tok/s\n'
+             'step   160 loss 3.9673    77.8 ms     13163 tok/s\n'
+             'step   170 loss 3.9371    69.4 ms     14764 tok/s\n'
+             'step   180 loss 3.9620    67.1 ms     15253 tok/s\n'
+             'step   190 loss 3.9287    77.6 ms     13202 tok/s\n'
+             'done: loss 6.2760 → 3.9287\n',
  'triangle_features_gnn': 'triangle participation: max 1246, mean 80.53\n'
                           'baseline (degree only)      : loss 0.3371, accuracy 0.844\n'
                           'with TriPoll triangle feature: loss 0.1795, accuracy 0.934\n'
@@ -242,3 +324,44 @@ GNN_STEP_LOSSES = [[2.1402318477630615, 2.827746629714966, 0.8964966535568237, 2
   0.2151433825492859, 0.2361096292734146, 0.20431868731975555, 0.21844710409641266,
   0.19947189092636108, 0.20115815103054047, 0.1949729472398758, 0.1819101721048355,
   0.18807365000247955, 0.16885614395141602, 0.1794547438621521]]
+
+TRAIN_LM_STEP_LOSSES = [6.614684581756592, 6.616873264312744, 6.559153079986572, 6.47588586807251, 6.491241931915283,
+ 6.450314998626709, 6.434809684753418, 6.388538360595703, 6.406304836273193, 6.307989597320557,
+ 6.274878978729248, 6.312936782836914, 6.199973106384277, 6.1175665855407715, 6.092721939086914,
+ 6.1114935874938965, 5.9976701736450195, 5.991879940032959, 5.851789474487305, 5.822713375091553,
+ 5.7305827140808105, 5.700984477996826, 5.598639011383057, 5.508545398712158, 5.443647384643555,
+ 5.352789878845215, 5.306024074554443, 5.116560459136963, 5.118652820587158, 5.082518577575684,
+ 4.956271648406982, 4.83133602142334, 4.832042217254639, 4.720033645629883, 4.658749580383301,
+ 4.664834022521973, 4.546103477478027, 4.492074489593506, 4.4937849044799805, 4.404147148132324,
+ 4.342287063598633, 4.321169853210449, 4.307534694671631, 4.28846549987793, 4.254226207733154,
+ 4.22934103012085, 4.249368190765381, 4.210383892059326, 4.183921813964844, 4.169040679931641,
+ 4.196770191192627, 4.148260116577148, 4.100117206573486, 4.152982711791992, 4.1283040046691895,
+ 4.078551769256592, 4.105709552764893, 4.081794261932373, 4.109494686126709, 4.077776908874512,
+ 4.074939250946045, 4.057563781738281, 4.0656890869140625, 4.042715072631836, 4.092465400695801,
+ 4.068686485290527, 4.07649564743042, 4.067662239074707, 4.097816467285156, 4.0197529792785645,
+ 4.057143211364746, 4.0557122230529785, 4.052953720092773, 4.04821252822876, 4.043056488037109,
+ 4.0284953117370605, 3.9978766441345215, 3.991462230682373, 3.986821174621582, 3.9890754222869873,
+ 4.020105838775635, 4.030472278594971, 4.052812576293945, 4.051629543304443, 4.00883150100708,
+ 3.9944279193878174, 3.9983980655670166, 3.9736063480377197, 4.038491725921631, 4.041428089141846,
+ 3.976104497909546, 3.9702725410461426, 3.9956552982330322, 4.015567302703857, 3.9749584197998047,
+ 3.99039888381958, 4.000888347625732, 3.961824655532837, 3.9629967212677, 3.9723198413848877,
+ 3.955471992492676, 3.9373574256896973, 3.933450222015381, 3.966012477874756, 3.9524102210998535,
+ 4.015624523162842, 4.005636692047119, 4.029870986938477, 4.017179489135742, 3.9714725017547607,
+ 3.971022844314575, 3.9536685943603516, 3.9822022914886475, 3.9996869564056396, 3.977142095565796,
+ 3.9938600063323975, 3.9490413665771484, 3.9195618629455566, 3.983187675476074, 3.961047887802124,
+ 3.9808666706085205, 3.9747660160064697, 3.9453606605529785, 3.9635303020477295, 3.9245643615722656,
+ 3.9616055488586426, 3.9671757221221924, 3.9319255352020264, 3.976369857788086, 3.927711009979248,
+ 3.899855613708496, 3.920055627822876, 3.939517021179199, 3.917221784591675, 3.9356689453125,
+ 3.900885581970215, 3.925339460372925, 3.944060802459717, 3.9466543197631836, 3.9276304244995117,
+ 3.982051134109497, 3.9636070728302, 3.925128698348999, 3.9460508823394775, 3.866729974746704,
+ 3.9455273151397705, 3.9407546520233154, 3.9110026359558105, 3.94303297996521, 3.9397196769714355,
+ 3.9549498558044434, 3.927252769470215, 3.972426652908325, 3.9515440464019775, 3.9233620166778564,
+ 3.9295146465301514, 3.899440050125122, 3.977839469909668, 3.9069712162017822, 3.962378978729248,
+ 3.9673261642456055, 3.8916983604431152, 3.951528549194336, 3.9411749839782715, 3.933175563812256,
+ 3.9256317615509033, 3.9083304405212402, 3.8860507011413574, 3.9880383014678955, 3.9209816455841064,
+ 3.9370646476745605, 3.9576191902160645, 3.928467035293579, 3.92002272605896, 3.9537227153778076,
+ 3.949639320373535, 3.932831048965454, 3.8979854583740234, 3.9362447261810303, 3.9251439571380615,
+ 3.9619641304016113, 3.9437813758850098, 3.9373090267181396, 3.910905599594116, 3.8925118446350098,
+ 3.9401891231536865, 3.9436280727386475, 3.940626621246338, 3.941072702407837, 3.903001308441162,
+ 3.9286861419677734, 3.949676275253296, 3.958925247192383, 3.9523401260375977, 3.9406747817993164,
+ 3.8764002323150635, 3.9350643157958984, 3.8913631439208984, 3.9308931827545166, 3.894400119781494]

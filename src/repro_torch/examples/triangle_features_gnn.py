@@ -37,16 +37,11 @@ from repro_torch.models.gnn import common, schnet
 from repro_torch.train import adamw, make_train_step
 from repro_torch.train.optimizer import tree_map
 from repro_torch.train.trainer import init_state
-from repro_torch.utils import resolve_device
+from repro_torch.utils import resolve_device, sync
 
 # the twin's model: two interactions, 32 wide, 8 radial bases
 EXAMPLE_CFG = schnet.Cfg(n_interactions=2, d_hidden=32, n_rbf=8, cutoff=2.0)
 LABELS = ("baseline (degree only)      ", "with TriPoll triangle feature")
-
-
-def _sync(dev):
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
 
 
 def model_cfg(cfg, d_feat: int) -> schnet.Cfg:
@@ -70,10 +65,10 @@ def survey_counts(g, S: int, dev, gr=None, push_cap: int = 512,
         gr, _ = shard_dodgr(g, S=S, device=dev)
     cfg, _ = plan_engine(g, S, LocalVertexCount(g.n), mode="pushpull",
                          push_cap=push_cap, pull_q_cap=pull_q_cap)
-    _sync(dev)
+    sync(dev)
     t0 = time.perf_counter()
     counts, st = survey_push_pull(gr, LocalVertexCount(g.n), cfg)
-    _sync(dev)
+    sync(dev)
     return counts, time.perf_counter() - t0, st
 
 
@@ -132,10 +127,10 @@ def train_eval(mc: schnet.Cfg, batch, y, name: str, steps: int, dev) -> dict:
     walls = []
     losses = []
     for _ in range(steps):
-        _sync(dev)
+        sync(dev)
         t0 = time.perf_counter()
         state, m = step(state, batch)
-        _sync(dev)
+        sync(dev)
         walls.append(time.perf_counter() - t0)
         losses.append(m["loss"])
     with torch.no_grad():

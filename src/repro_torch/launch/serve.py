@@ -22,12 +22,7 @@ from repro_torch import configs as registry
 from repro_torch.data import lm_batch
 from repro_torch.models import threefry
 from repro_torch.models import transformer as TF
-from repro_torch.utils import resolve_device
-
-
-def _sync(dev):
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+from repro_torch.utils import resolve_device, sync
 
 
 def prefill(cfg, params, prompts, max_len: int):
@@ -75,11 +70,11 @@ def main(argv=None, keep: dict | None = None):
         prompts = lm_batch(args.seed, 1, args.batch, args.prompt_len,
                            cfg.vocab, dev)
 
-        _sync(dev)
+        sync(dev)
         t0 = time.perf_counter()
         logits, cache = prefill(cfg, params, prompts, max_len)
         tok = greedy(logits[:, -1:])
-        _sync(dev)
+        sync(dev)
         t_prefill = time.perf_counter() - t0
 
         out = [tok]
@@ -91,7 +86,7 @@ def main(argv=None, keep: dict | None = None):
             out.append(tok)
             if keep is not None:
                 kept.append(logits)
-        _sync(dev)
+        sync(dev)
         t_dec = time.perf_counter() - t1
         seqs = torch.cat(out, 1).cpu().numpy()
         if keep is not None:

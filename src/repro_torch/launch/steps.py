@@ -10,8 +10,10 @@ the valid nodes, or the graph-energy MSE). :func:`gnn_cell` puts them
 together for a port ``make_train_step``. The reference's cell also
 carries shardings and abstract inputs for a JAX mesh (``CellPlan``); on
 one card the port has no counterpart. Of the LM cells the port has the
-model FLOPs (:func:`lm_attn_flops`, :func:`lm_prefill_flops`,
-:func:`lm_decode_flops`), for the card's model TFLOP/s; the recsys and TriPoll cells wait for the dry-run slice.
+model FLOPs (:func:`lm_attn_flops`, :func:`lm_train_flops`,
+:func:`lm_prefill_flops`, :func:`lm_decode_flops`), for the card's model
+TFLOP/s, and a train cell's optimizer (:func:`pick_opt`); the recsys and
+TriPoll cells wait for the dry-run slice.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 
 from repro_torch import configs as config_registry
 from repro_torch.configs.base import GNNConfig, LMConfig
+from repro_torch.train.optimizer import adafactor, adamw
 
 # ---------------------------------------------------------------------------
 # LM cells: model FLOPs
@@ -32,6 +35,11 @@ def lm_attn_flops(cfg: LMConfig, B, S):
     return cfg.n_layers * B * cfg.n_heads * cfg.d_head * S * S * 2.0
 
 
+def lm_train_flops(cfg: LMConfig, B, S):
+    """One train step over [B, S] positions: forward and backward."""
+    return 6.0 * cfg.n_active_params * B * S + 3.0 * lm_attn_flops(cfg, B, S)
+
+
 def lm_prefill_flops(cfg: LMConfig, B, S):
     return 2.0 * cfg.n_active_params * B * S + lm_attn_flops(cfg, B, S)
 
@@ -40,6 +48,14 @@ def lm_decode_flops(cfg: LMConfig, B, S):
     """One decode step of B tokens against an S-entry cache."""
     return (2.0 * cfg.n_active_params * B
             + cfg.n_layers * B * cfg.n_heads * cfg.d_head * S * 4.0)
+
+
+def pick_opt(mod):
+    """A train cell's optimizer: Adafactor where the config module names
+    it (``OPTIMIZER``), else AdamW."""
+    if getattr(mod, "OPTIMIZER", "adamw") == "adafactor":
+        return adafactor(1e-2)
+    return adamw(3e-4)
 
 
 # ---------------------------------------------------------------------------

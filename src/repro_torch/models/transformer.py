@@ -7,7 +7,10 @@ RMSNorm; optional MoE FFN). The parameters are the reference's tree,
 the reference's names); ``forward`` runs the layers in a Python loop
 where the reference scans. Matrices keep ``param_dtype`` and are cast to
 the activations' ``dtype`` where the reference casts them; norms and the
-router stay float32.
+router stay float32. Under autograd with ``cfg.remat`` each layer runs
+inside ``torch.utils.checkpoint`` and is recomputed in the backward, as
+the reference's ``jax.checkpoint(layer, nothing_saveable)`` is: a step
+keeps each layer's input and one layer's activations at a time.
 
 :func:`decode_step` writes the new position's keys and values into the
 cache it is given (in place: the reference's ``.at[].set`` makes the
@@ -21,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.models import moe as moe_lib
@@ -79,10 +83,14 @@ def init_params(cfg: LMConfig, key, device=None):
     )
 
 
-def layer_params(blocks: dict, l: int) -> dict:
-    """Layer ``l``'s slice of the stacked ``blocks`` (views)."""
-    return {k: layer_params(v, l) if isinstance(v, dict) else v[l]
-            for k, v in blocks.items()}
+def unbind_layers(blocks: dict, n_layers: int) -> list:
+    """Every layer's slice of the stacked ``blocks`` (views), one
+    ``unbind`` a leaf: its backward stacks the layers' gradients into one
+    tensor, where indexing each layer (``blocks[k][l]``) would give every
+    layer a backward that writes a zero gradient of the whole stack."""
+    parts = {k: unbind_layers(v, n_layers) if isinstance(v, dict)
+             else v.unbind(0) for k, v in blocks.items()}
+    return [{k: p[l] for k, p in parts.items()} for l in range(n_layers)]
 
 
 # ---------------------------------------------------------------------------
@@ -166,8 +174,15 @@ def forward(cfg: LMConfig, params, tokens, return_cache: bool = False):
     pos = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
     x = _embed(cfg, params, tokens)
     ks, vs, aux = [], [], []
-    for l in range(cfg.n_layers):
-        x, cache, a = _block(cfg, layer_params(params["blocks"], l), x, pos)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for bp in unbind_layers(params["blocks"], cfg.n_layers):
+        if remat:
+            # the layer draws no random numbers: no RNG state to replay
+            x, cache, a = checkpoint(_block, cfg, bp, x, pos,
+                                     use_reentrant=False,
+                                     preserve_rng_state=False)
+        else:
+            x, cache, a = _block(cfg, bp, x, pos)
         if return_cache:
             ks.append(cache["k"])
             vs.append(cache["v"])
@@ -210,8 +225,8 @@ def decode_step(cfg: LMConfig, params, cache, tokens):
     (the same k, v tensors, written in place; ``pos`` one further)."""
     pos = cache["pos"][:, None]                               # [B,1]
     x = _embed(cfg, params, tokens)
-    for l in range(cfg.n_layers):
-        x, _, _ = _block(cfg, layer_params(params["blocks"], l), x, pos,
+    for l, bp in enumerate(unbind_layers(params["blocks"], cfg.n_layers)):
+        x, _, _ = _block(cfg, bp, x, pos,
                          cache=dict(k=cache["k"][l], v=cache["v"][l],
                                     pos=cache["pos"]))
     logits = _logits(cfg, params, x)

@@ -59,7 +59,9 @@ def _microbatch(batch, i: int):
     return batch
 
 
-def _value_and_grad(loss_fn, params, batch):
+def value_and_grad(loss_fn, params, batch):
+    """``loss_fn(params, batch)``'s loss (detached), metrics and gradient
+    tree at ``params`` (``jax.value_and_grad(..., has_aux=True)``)."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     loss, metrics = loss_fn(tree_unflatten(params, leaves), batch)
     # a leaf the loss does not reach (NequIP's last l > 0 mixes) gets a
@@ -77,7 +79,7 @@ def make_train_step(loss_fn, opt: Optimizer, *, accum_steps: int = 1,
 
     def step(state: TrainState, batch):
         if accum_steps == 1:
-            loss, metrics, grads = _value_and_grad(loss_fn, state.params, batch)
+            loss, metrics, grads = value_and_grad(loss_fn, state.params, batch)
         else:
             grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                    device=p.device),
@@ -85,7 +87,7 @@ def make_train_step(loss_fn, opt: Optimizer, *, accum_steps: int = 1,
             loss = torch.zeros((), dtype=torch.float32,
                                device=tree_leaves(state.params)[0].device)
             for i in range(accum_steps):
-                l, _, g = _value_and_grad(loss_fn, state.params,
+                l, _, g = value_and_grad(loss_fn, state.params,
                                           _microbatch(batch, i))
                 grads = tree_map(lambda a, b: a + b.to(torch.float32), grads, g)
                 loss = loss + l

@@ -138,6 +138,13 @@ def pad_axis_to(x: np.ndarray, axis: int, n: int, fill=0) -> np.ndarray:
     return np.pad(x, pad, constant_values=fill)
 
 
+def sync(dev: torch.device) -> None:
+    """Wait for the work queued on ``dev`` (nothing to wait for off the
+    card)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 def resolve_device(device) -> torch.device:
     """``None`` means the card. There is no CPU fallback: asking for CUDA
     where there is none raises; pass ``device="cpu"`` explicitly."""

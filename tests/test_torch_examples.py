@@ -51,6 +51,7 @@ def port(name: str):
 def test_recorded_lines_cover_every_example():
     assert set(expected.LINES) == set(NAMES)
     assert [len(t) for t in expected.GNN_STEP_LOSSES] == [60, 60]
+    assert len(expected.TRAIN_LM_STEP_LOSSES) == 200
 
 
 def test_quickstart_live_equal_twin_and_recorded_lines():

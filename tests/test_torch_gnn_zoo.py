@@ -343,8 +343,7 @@ def test_bessel_roots_are_the_references_and_roots():
         assert (np.abs(pd._spherical_jn_np(l, r[l])) < 1e-9).all()
 
 
-LM_REF_ONLY = {"remat", "attn_shard", "moe_group_chunks", "scan_unroll",
-               "attn_bias"}
+LM_REF_ONLY = {"attn_shard", "moe_group_chunks", "scan_unroll", "attn_bias"}
 
 
 def test_configs_equal_reference():
@@ -357,8 +356,8 @@ def test_configs_equal_reference():
             ra = dataclasses.asdict(getattr(a, name))
             rb = dataclasses.asdict(getattr(b, name))
             assert {k: ra[k] for k in rb} == rb
-            # the LMs drop the reference's compile and sharding knobs and
-            # attn_bias (tests/test_torch_lm.py holds their values)
+            # the LMs drop the reference's sharding and compile knobs but
+            # remat, and attn_bias (tests/test_torch_lm.py holds their values)
             assert set(ra) - set(rb) == (LM_REF_ONLY if arch in lms else set())
         assert [dataclasses.asdict(c) for c in a.SHAPES] == \
             [dataclasses.asdict(c) for c in b.SHAPES]

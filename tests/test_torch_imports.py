@@ -39,6 +39,10 @@ def test_import_loads_no_jax():
             "repro_torch.configs.command_r_plus_104b",
             "repro_torch.configs.llama4_maverick_400b_a17b",
             "repro_torch.configs.kimi_k2_1t_a32b"} <= set(mods)
+    # nor does LM training
+    assert {"repro_torch.checkpoint", "repro_torch.checkpoint.manager",
+            "repro_torch.launch.train", "repro_torch.launch.elastic",
+            "repro_torch.examples.train_lm"} <= set(mods)
     code = ("import sys, importlib\n"
             f"sys.path.insert(0, {str(ROOT)!r})\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

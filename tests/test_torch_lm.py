@@ -110,7 +110,7 @@ def _port_params(runs, arch):
 # the reference's LMConfig fields that the port's lacks, each with the
 # values under which the port computes what the reference does: compile
 # and sharding knobs, and no biases
-REF_ONLY_FIELDS = dict(remat={True, False}, attn_shard={"heads", "seq"},
+REF_ONLY_FIELDS = dict(attn_shard={"heads", "seq"},
                        moe_group_chunks={1}, scan_unroll={True, False},
                        attn_bias={False})
 
