@@ -106,7 +106,7 @@ Phases (every failure ends the run with a non-zero exit):
    factor 16, seed 0; S=8 logical shards on the card, dense transport,
    ``plan_engine(..., push_cap=4096, pull_q_cap=16)``, through the user
    entry points (``shard_dodgr`` → ``plan_engine`` → ``survey_push_only``
-   / ``survey_push_pull``). Twelve paths, each with the launch counts set
+   / ``survey_push_pull``). Thirteen paths, each with the launch counts set
    to 0 just before it and read just after (paths g and h: in each rank):
 
    a. the first slice's: degree metadata; TriangleCount and
@@ -262,6 +262,26 @@ Phases (every failure ends the run with a non-zero exit):
       tokens/s, model TFLOP/s (``launch.steps.lm_train_flops``), peak
       memory above the resident, one profiled step (idle share). It
       launches no kernel of ours (checked).
+   m. recsys at BST's published widths (``path_recsys``:
+      ``configs/bst.py``'s CONFIG, d 32, 20 history items, one block of 8
+      heads, MLP 1,024-512-256, a 20,000,000-row item table and eight
+      1,000,000-row field tables, bf16; 897,620,929 parameters drawn on
+      the card from ``threefry.prng_key(0)``) through
+      ``launch.steps.recsys_cell``'s four cells on ``recsys_batch`` inputs
+      drawn on the card: train_batch (65,536 samples, AdamW(1e-3), a
+      warm-up and ``RECSYS_TRAIN_STEPS`` steps), serve_p99 (512,
+      ``RECSYS_SERVE_REPS`` forwards), serve_bulk (262,144) and
+      retrieval_cand (one history against 1,000,448 candidates). Checks:
+      SMOKE float32 card vs CPU, three AdamW steps, forward logits and
+      retrieval scores (``RECSYS_SMOKE_RTOL``, parameters as
+      ``adamw_within`` bounds them); the card's ``recsys_batch`` == the
+      CPU's bit for bit; finite losses, logits and scores; the bf16
+      serve_p99 logits and retrieval scores against a float32 copy of the
+      weights (``RECSYS_BF16_RTOL``, relative L2). The median step,
+      samples/s, model TFLOP/s (``launch.steps.recsys_flops``), peak above
+      the resident, serve p50 / p99, bulk and retrieval walls, one
+      profiled call a cell (idle share). It launches no kernel of ours
+      (checked).
 
    Every run is exact and every kernel of a path launched on it. Every
    plan a path runs is audited by ``repro_torch.analysis.check_plan``
@@ -294,7 +314,7 @@ Phases (every failure ends the run with a non-zero exit):
    wedge_intersect at rank 0's largest launch on path g, with path g's
    launches; fold_count_max on path a's largest fold with rows of 16
    words (no real call); every row with the kernel's launches on each
-   path a–l (paths j, k and l: 0). On lines before the
+   path a–m (paths j, k, l and m: 0). On lines before the
    JSON: wedge_intersect at the fullest and at the last pull superstep,
    the fold_count_max launch bins, and the same measures of
    fold_count_max at its typical fold.
@@ -395,12 +415,13 @@ PATH_KERNELS = {
     "zoo": (),
     "lm": (),
     "train": (),
+    "recsys": (),
 }
 # the letters PERF.md gives the full-size paths
 PATH_LETTERS = {"first": "a", "bundle": "b", "split": "c", "hub": "d",
                 "delta": "e", "served": "f", "mesh": "g", "served_mesh": "h",
                 "downstream": "i", "zoo": "j", "lm": "k",
-                "train": "l"}
+                "train": "l", "recsys": "m"}
 REPORTED_PATH = {"wedge_check": "first", "wedge_intersect": "first",
                  "fold_count_max": "first", "ring_set": "bundle",
                  "hist_add": "bundle", "hist_max": "bundle",
@@ -2153,6 +2174,13 @@ def phase_full(torch, report, scale, dev):
     require(not any(launches["train"].values()),
             f"path l launched a kernel of the survey path: {launches['train']}")
     log(f"path l: {full['train']['wall_s']:.2f} s, no kernel of ours launched")
+    t0 = time.perf_counter()
+    _, launches["recsys"] = run_path(torch, dev, "recsys",
+                                     lambda: path_recsys(torch, dev, full))
+    full["recsys"]["wall_s"] = time.perf_counter() - t0
+    require(not any(launches["recsys"].values()),
+            f"path m launched a kernel of the survey path: {launches['recsys']}")
+    log(f"path m: {full['recsys']['wall_s']:.2f} s, no kernel of ours launched")
 
     # capture one superstep's inputs of each kernel: DegreeTriples,
     # Enumerate and LocalVertexCount bundled on path a's graph run
@@ -3891,6 +3919,310 @@ def path_train(torch, dev, full, widths="CONFIG"):
         f"checkpoint): {r['restored_line']}, B == C bit for bit ({r['leaves']} "
         f"leaves), runs A {r['A_s']:.2f} s, B {r['B_s']:.2f} s, C "
         f"{r['C_s']:.2f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# path m: recsys (BST) at its published widths
+
+RECSYS_ARCH = "bst"
+RECSYS_PARAMS = 897_620_929   # CONFIG: tables 896,000,000, MLP 1,607,681,
+                              # block 12,576, position embeddings 672
+RECSYS_TRAIN_STEPS = 10    # timed AdamW steps of train_batch, after a warm-up
+RECSYS_SERVE_REPS = 50     # serve_p99 forwards, timed one by one
+RECSYS_BULK_REPS = 3       # serve_bulk forwards, after a warm-up
+RECSYS_RETRIEVAL_REPS = 5  # retrieval_cand scorings, after a warm-up
+RECSYS_SMOKE_BATCH = 256   # SMOKE card vs CPU: AdamW steps of this batch
+RECSYS_SMOKE_STEPS = 3
+# SMOKE widths in float32, card vs CPU, the same weights: logits, losses and
+# scores of the largest, parameters of each leaf's largest (AdamW's as
+# adamw_within bounds them)
+RECSYS_SMOKE_RTOL = 1e-5
+# the key projection's bias shifts every score of a query alike, so the
+# softmax is invariant to it: its gradient is rounding noise, which AdamW
+# turns into steps of up to lr (tests/test_torch_recsys.py holds it so too)
+RECSYS_NULL_LEAF = ("blocks", 0, "wk", "b")
+# bf16 vs a float32 copy of the same weights at CONFIG widths, relative L2
+# of the serve_p99 logits and of the retrieval scores (path k holds bf16 at
+# 5e-2 too)
+RECSYS_BF16_RTOL = 5e-2
+
+
+def _leaf(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def recsys_smoke_check(torch, dev) -> dict:
+    """BST at SMOKE widths in float32, the same weights (drawn on the CPU)
+    on the CPU and on ``dev``: ``RECSYS_SMOKE_STEPS`` steps of the SMOKE
+    train cell's AdamW(1e-3) (losses within ``RECSYS_SMOKE_RTOL`` of the
+    largest, parameters as :func:`adamw_within` says; the key bias, a null
+    direction, moved at most lr a step on both), then the forward logits
+    and the retrieval scores over every item within ``RECSYS_SMOKE_RTOL``."""
+    from repro_torch.data import recsys_batch
+    from repro_torch.launch.steps import recsys_cell
+    from repro_torch.models import threefry
+    from repro_torch.models.recsys import bst
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+    from repro_torch.train.trainer import init_state, value_and_grad
+
+    cpu = torch.device("cpu")
+    cell = recsys_cell(RECSYS_ARCH, "train_batch", widths="SMOKE")
+    cfg = cell.cfg
+    p0 = bst.init_params(cfg, threefry.prng_key(0), cpu)
+    runs = []
+    for d in (cpu, dev):
+        state = init_state(tree_map(lambda t: t.to(d), p0), cell.opt)
+        losses = []
+        for i in range(RECSYS_SMOKE_STEPS):
+            state, m = cell.fn(state, recsys_batch(
+                cfg, 0, i, RECSYS_SMOKE_BATCH, device=d))
+            losses.append(float(m["loss"]))
+        batch = recsys_batch(cfg, 0, 9, 64, device=d)
+        with torch.no_grad():
+            logits = bst.forward(cfg, state.params, batch)
+            scores = bst.retrieval_scores(cfg, state.params, dict(
+                hist=batch["hist"][:1],
+                cand_ids=torch.arange(cfg.n_items, dtype=torch.int32,
+                                      device=d)))
+        runs.append(dict(losses=losses, params=state.params, logits=logits,
+                         scores=scores))
+    ref, got = runs
+
+    def rel(a, b):
+        a, b = torch.as_tensor(a).double().cpu(), torch.as_tensor(b).double().cpu()
+        return float((a - b).abs().max() / b.abs().max())
+
+    out = dict(losses=got["losses"],
+               loss_rel_err=rel(got["losses"], ref["losses"]),
+               logits_rel_err=rel(got["logits"], ref["logits"]),
+               scores_rel_err=rel(got["scores"], ref["scores"]))
+    _, _, g1 = value_and_grad(lambda p, b: bst.loss_fn(cfg, p, b), p0,
+                              recsys_batch(cfg, 0, 0, RECSYS_SMOKE_BATCH,
+                                           device=cpu))
+    b0 = _leaf(p0, RECSYS_NULL_LEAF)
+    out["null_leaf_moved"] = max(
+        float((_leaf(r["params"], RECSYS_NULL_LEAF).cpu() - b0).abs().max())
+        for r in runs)
+
+    def rest(tree):
+        null = _leaf(tree, RECSYS_NULL_LEAF)
+        return [t for t in tree_leaves(tree) if t is not null]
+
+    out["params"] = adamw_within(torch, rest(got["params"]), rest(ref["params"]),
+                                 rest(g1), RECSYS_SMOKE_STEPS, 1e-3,
+                                 RECSYS_SMOKE_RTOL)
+    require(max(out["loss_rel_err"], out["logits_rel_err"], out["scores_rel_err"])
+            <= RECSYS_SMOKE_RTOL and out["params"]["ok"]
+            and out["null_leaf_moved"] <= RECSYS_SMOKE_STEPS * 1e-3,
+            f"path m SMOKE card vs CPU: {out}")
+    return out
+
+
+def rel_l2(torch, got, want) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm())
+
+
+def step_walls(torch, dev, fn, reps) -> list:
+    """``reps`` calls of ``fn``, each timed on the host clock and ended by a
+    synchronize."""
+    walls = []
+    for _ in range(reps):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        fn()
+        sync(torch, dev)
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
+def path_recsys(torch, dev, full, widths="CONFIG"):
+    """Path m: BST at its published widths (``configs/bst.py``'s CONFIG:
+    d 32, 20 history items, 1 block × 8 heads, MLP 1,024-512-256, a
+    20,000,000-row item table and 8 fields of 1,000,000 rows, bf16;
+    897,620,929 parameters drawn on the card from ``threefry.prng_key(0)``)
+    through ``launch.steps.recsys_cell`` on ``recsys_batch`` inputs drawn on
+    the card: train_batch (65,536 samples, AdamW(1e-3): a warm-up, then
+    ``RECSYS_TRAIN_STEPS`` steps), serve_p99 (512 samples,
+    ``RECSYS_SERVE_REPS`` forwards), serve_bulk (262,144 samples) and
+    retrieval_cand (one history against 1,000,448 candidates). Checks: SMOKE
+    card vs CPU (:func:`recsys_smoke_check`); the card's ``recsys_batch``
+    equal to the CPU's bit for bit; finite losses, logits and scores; the
+    bf16 serve_p99 logits and retrieval scores within ``RECSYS_BF16_RTOL``
+    (relative L2) of a float32 copy of the same weights. Records: the
+    median step, samples/s, model TFLOP/s (``launch.steps.recsys_flops``),
+    peak above the resident and one profiled step (idle share); serve
+    p50 / p99; bulk and retrieval walls; one profiled call of each serve
+    and retrieval cell. ``widths="SMOKE"`` runs the
+    SMOKE model at the cells' batch sizes for a CPU rehearsal."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import recsys_batch
+    from repro_torch.launch.steps import recsys_cell
+    from repro_torch.models import threefry
+    from repro_torch.models.recsys import bst
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+    from repro_torch.train.trainer import init_state
+
+    cfg = getattr(get_arch(RECSYS_ARCH), widths)
+    out = full["recsys"] = dict(arch=RECSYS_ARCH, widths=widths)
+    t0 = time.perf_counter()
+    out["smoke"] = recsys_smoke_check(torch, dev)
+    out["smoke_s"] = time.perf_counter() - t0
+    log(f"path m: SMOKE card vs CPU, {RECSYS_SMOKE_STEPS} AdamW steps: losses "
+        f"{out['smoke']['loss_rel_err']:.2e}, parameters "
+        f"{out['smoke']['params']}, key bias moved "
+        f"{out['smoke']['null_leaf_moved']:.2e}, logits "
+        f"{out['smoke']['logits_rel_err']:.2e}, scores "
+        f"{out['smoke']['scores_rel_err']:.2e} (rtol {RECSYS_SMOKE_RTOL}); "
+        f"{out['smoke_s']:.2f} s")
+
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    params = bst.init_params(cfg, threefry.prng_key(0), dev)
+    sync(torch, dev)
+    out["init_s"] = time.perf_counter() - t0
+    out["params"] = sum(t.numel() for t in tree_leaves(params))
+    require(widths != "CONFIG" or out["params"] == RECSYS_PARAMS,
+            f"path m: {out['params']} parameters, not {RECSYS_PARAMS}")
+    cells = {c.name: recsys_cell(RECSYS_ARCH, c.name, widths)
+             for c in get_arch(RECSYS_ARCH).SHAPES}
+
+    # the card's batches are the CPU's, bit for bit (serve_p99's)
+    B = cells["serve_p99"].batch
+    host = recsys_batch(cfg, 0, 1, B, device="cpu")
+    card = recsys_batch(cfg, 0, 1, B, device=dev)
+    out["batch_bitwise"] = all(
+        host[k].dtype == card[k].dtype and torch.equal(host[k], card[k].cpu())
+        for k in host)
+    require(out["batch_bitwise"], "path m: recsys_batch on the card != the CPU's")
+
+    # train_batch: a warm-up step, then the timed steps
+    cell = cells["train_batch"]
+    B = cell.batch
+    state = init_state(params, cell.opt)
+    base = memory_reset(torch, dev)
+    walls, losses = [], []
+    for i in range(RECSYS_TRAIN_STEPS + 1):
+        batch = recsys_batch(cfg, 0, i, B, device=dev)
+        res = {}
+
+        def step():
+            res["state"], res["m"] = cell.fn(state, batch)
+
+        walls += step_walls(torch, dev, step, 1)
+        state = res["state"]
+        losses.append(float(res["m"]["loss"]))
+    train = out["train_batch"] = dict(
+        batch=B, steps=RECSYS_TRAIN_STEPS, step_s=walls, losses=losses,
+        resident_bytes=base, peak_bytes=peak_memory(torch, dev) - base,
+        flops_per_step=cell.model_flops)
+    require(all(np.isfinite(losses)), f"path m: losses {losses} not finite")
+    median = train["median_step_s"] = statistics.median(walls[1:])
+    train["samples_s"] = B / median
+    train["tflops"] = cell.model_flops / median / 1e12
+    batch = recsys_batch(cfg, 0, RECSYS_TRAIN_STEPS + 1, B, device=dev)
+    if dev.type == "cuda":
+        train["profile"] = profile_run(torch, "path m train step",
+                                       lambda: cell.fn(state, batch), top=12)
+    del state, batch, res
+
+    with torch.no_grad():
+        # serve_p99: forwards one at a time
+        cell = cells["serve_p99"]
+        batch = recsys_batch(cfg, 0, 100, cell.batch, device=dev)
+        serve = {}
+        walls = step_walls(torch, dev, lambda: serve.update(
+            logits=cell.fn(params, batch)), RECSYS_SERVE_REPS + 3)[3:]
+        q = np.percentile(walls, [50, 99])
+        out["serve_p99"] = dict(batch=cell.batch, reps=len(walls),
+                                p50_s=float(q[0]), p99_s=float(q[1]),
+                                flops=cell.model_flops)
+        logits16 = serve["logits"].float()
+        require(bool(torch.isfinite(logits16).all()),
+                "path m: serve_p99 logits not finite")
+        p99_batch = batch
+        if dev.type == "cuda":
+            out["serve_p99"]["profile"] = profile_run(
+                torch, "path m serve_p99 forward",
+                lambda: cell.fn(params, batch), top=8)
+
+        # serve_bulk
+        cell = cells["serve_bulk"]
+        batch = recsys_batch(cfg, 0, 101, cell.batch, device=dev)
+        base = memory_reset(torch, dev)
+        walls = step_walls(torch, dev, lambda: serve.update(
+            bulk=cell.fn(params, batch)), RECSYS_BULK_REPS + 1)[1:]
+        out["serve_bulk"] = dict(
+            batch=cell.batch, wall_s=walls,
+            median_s=statistics.median(walls),
+            samples_s=cell.batch / statistics.median(walls),
+            peak_bytes=peak_memory(torch, dev) - base, flops=cell.model_flops)
+        require(bool(torch.isfinite(serve.pop("bulk")).all()),
+                "path m: serve_bulk logits not finite")
+        if dev.type == "cuda":
+            out["serve_bulk"]["profile"] = profile_run(
+                torch, "path m serve_bulk forward",
+                lambda: cell.fn(params, batch), top=8)
+        del batch
+
+        # retrieval_cand: one history against the candidate slab
+        cell = cells["retrieval_cand"]
+        n_cand = cell.inputs["cand_ids"][0][0]
+        query = dict(hist=recsys_batch(cfg, 0, 102, 1, device=dev)["hist"],
+                     cand_ids=threefry.torch_randint(threefry.prng_key(1),
+                                                     (n_cand,), 0, cfg.n_items,
+                                                     dev))
+        walls = step_walls(torch, dev, lambda: serve.update(
+            scores=cell.fn(params, query)), RECSYS_RETRIEVAL_REPS + 1)[1:]
+        out["retrieval_cand"] = dict(candidates=n_cand, wall_s=walls,
+                                     median_s=statistics.median(walls),
+                                     flops=cell.model_flops)
+        scores16 = serve["scores"]
+        if dev.type == "cuda":
+            out["retrieval_cand"]["profile"] = profile_run(
+                torch, "path m retrieval_cand scores",
+                lambda: cell.fn(params, query), top=8)
+        require(scores16.dtype == torch.float32 and scores16.shape == (n_cand,)
+                and bool(torch.isfinite(scores16).all()),
+                "path m: retrieval scores not float32, finite, one a candidate")
+
+        # bf16 against a float32 copy of the same weights
+        t0 = time.perf_counter()
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        p32 = tree_map(lambda t: t.float(), params)
+        del params
+        out["bf16_logits_rel_l2"] = rel_l2(
+            torch, logits16, bst.forward(cfg32, p32, p99_batch))
+        out["bf16_scores_rel_l2"] = rel_l2(
+            torch, scores16, bst.retrieval_scores(cfg32, p32, query))
+        del p32
+        out["bf16_check_s"] = time.perf_counter() - t0
+    require(max(out["bf16_logits_rel_l2"], out["bf16_scores_rel_l2"])
+            <= RECSYS_BF16_RTOL,
+            f"path m: bf16 vs float32 logits {out['bf16_logits_rel_l2']}, "
+            f"scores {out['bf16_scores_rel_l2']} > {RECSYS_BF16_RTOL}")
+    s, b, r = out["serve_p99"], out["serve_bulk"], out["retrieval_cand"]
+    log(f"path m: {RECSYS_ARCH} {widths} ({out['params']} parameters, drawn in "
+        f"{out['init_s']:.2f} s; recsys_batch card == CPU); train_batch "
+        f"{train['batch']} × {RECSYS_TRAIN_STEPS} AdamW steps: losses "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; step walls {', '.join(f'{w:.4f}' for w in train['step_s'])} s, "
+        f"median {median:.4f} s ({train['samples_s']:.0f} samples/s, "
+        f"{train['tflops']:.3f} model TFLOP/s of "
+        f"{train['flops_per_step'] / 1e9:.1f} GFLOP a step), peak "
+        f"{train['peak_bytes'] / 2**30:.2f} GiB above "
+        f"{train['resident_bytes'] / 2**30:.2f} resident; serve_p99 "
+        f"{s['batch']}: p50 {s['p50_s'] * 1e3:.3f} ms, p99 "
+        f"{s['p99_s'] * 1e3:.3f} ms over {s['reps']}; serve_bulk {b['batch']}: "
+        f"{', '.join(f'{w:.4f}' for w in b['wall_s'])} s ({b['samples_s']:.0f} "
+        f"samples/s, peak {b['peak_bytes'] / 2**30:.2f} GiB); retrieval_cand "
+        f"{r['candidates']}: {', '.join(f'{w * 1e3:.3f}' for w in r['wall_s'])} "
+        f"ms; bf16 vs float32 logits {out['bf16_logits_rel_l2']:.3e}, scores "
+        f"{out['bf16_scores_rel_l2']:.3e} (rtol {RECSYS_BF16_RTOL}); checks "
+        f"{out['bf16_check_s']:.2f} s")
     return out
 
 

@@ -16,6 +16,8 @@ ARCH_IDS = {
     "schnet": "schnet",
     "dimenet": "dimenet",
     "equiformer-v2": "equiformer_v2",
+    # recsys (1)
+    "bst": "bst",
 }
 
 

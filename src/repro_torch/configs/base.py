@@ -6,8 +6,8 @@ LM transformers (``MoESpec``, ``LMConfig``, ``LM_SHAPES``), the GNNs
 per ported architecture lives next to this module and exports ``CONFIG``
 (the exact published shapes), ``SMOKE`` (a reduced same-family variant
 for CPU tests), ``SHAPES`` (its input-shape cells), ``KIND`` and, where
-the reference names one, ``OPTIMIZER``. The recsys and TriPoll dry-run
-configs come with their slices.
+the reference names one, ``OPTIMIZER``. The TriPoll dry-run config comes
+with its slice.
 """
 from __future__ import annotations
 
@@ -50,6 +50,14 @@ GNN_SHAPES = (
         n_nodes=2449029, n_edges=61859140, d_feat=100, regime="full-batch-large")),
     ShapeCell("molecule", "graph", extras=dict(
         n_nodes=30, n_edges=64, batch=128, regime="batched-small-graphs")),
+)
+
+RECSYS_SHAPES = (
+    ShapeCell("train_batch", "train", global_batch=65536),
+    ShapeCell("serve_p99", "serve", global_batch=512),
+    ShapeCell("serve_bulk", "serve", global_batch=262144),
+    ShapeCell("retrieval_cand", "retrieval", global_batch=1,
+              extras=dict(n_candidates=1_000_000)),
 )
 
 
@@ -136,3 +144,21 @@ class GNNConfig:
     d_hidden: int
     extras: dict = field(default_factory=dict)
     dtype: str = "float32"
+
+
+# ---------------------------------------------------------------------------
+# RecSys
+
+
+@dataclass(frozen=True)
+class RecSysConfig:
+    name: str
+    embed_dim: int = 32
+    seq_len: int = 20
+    n_blocks: int = 1
+    n_heads: int = 8
+    mlp_dims: tuple = (1024, 512, 256)
+    n_items: int = 2_000_000            # sparse item-id table rows
+    n_sparse_fields: int = 8            # side-feature fields
+    vocab_per_field: int = 100_000
+    dtype: str = "bfloat16"

@@ -109,14 +109,31 @@ def _leaf_from_numpy(a, device) -> torch.Tensor:
     return torch.tensor(a, device=device)
 
 
+def _tree_from_numpy(tree, device):
+    """Nested dicts and lists of numpy leaves as the same tree of tensors
+    on ``device``, each leaf in its own dtype (:func:`_leaf_from_numpy`)."""
+    if isinstance(tree, dict):
+        return {k: _tree_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_from_numpy(v, device) for v in tree]
+    return _leaf_from_numpy(tree, device)
+
+
 def lm_params_from_jax(tree: dict, device) -> dict:
     """An LM parameter tree of the JAX package (``jax.tree.map(np.asarray,
     params)`` of ``repro.models.transformer.init_params``) as the port's
     tree of tensors on ``device``, each leaf in its own dtype: the norms
     and the router float32, the matrices ``param_dtype``, bit for bit."""
-    if isinstance(tree, dict):
-        return {k: lm_params_from_jax(v, device) for k, v in tree.items()}
-    return _leaf_from_numpy(tree, device)
+    return _tree_from_numpy(tree, device)
+
+
+def recsys_params_from_jax(tree: dict, device) -> dict:
+    """A recsys parameter tree of the JAX package (``jax.tree.map(
+    np.asarray, params)`` of ``repro.models.recsys.bst.init_params``: dicts
+    with the lists ``field_tables``, ``blocks`` and ``mlp``) as the port's
+    tree of tensors on ``device``, each leaf in its own dtype, bit for
+    bit."""
+    return _tree_from_numpy(tree, device)
 
 
 def params_to_numpy(params):
@@ -124,9 +141,10 @@ def params_to_numpy(params):
     with a ``tree()``: ``SchNet``, ``DimeNet``, ``NequIP``,
     ``EquiformerV2``) as numpy, in the layout ``jax.tree.map(np.asarray,
     params)`` gives the reference's — the inverse of
-    :func:`gnn_params_from_jax` and :func:`lm_params_from_jax`, for
-    comparing weights. A bfloat16 leaf comes back as its bits, ``uint16``
-    (the reference's leaf ``.view(np.uint16)``)."""
+    :func:`gnn_params_from_jax`, :func:`lm_params_from_jax` and
+    :func:`recsys_params_from_jax`, for comparing weights. A bfloat16 leaf
+    comes back as its bits, ``uint16`` (the reference's leaf
+    ``.view(np.uint16)``)."""
     if hasattr(params, "tree"):
         params = params.tree()
     if isinstance(params, dict):

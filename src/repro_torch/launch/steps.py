@@ -1,5 +1,5 @@
-"""GNN cells and LM model FLOPs: the GNN and LM parts of
-``repro.launch.steps``.
+"""GNN and recsys cells and LM model FLOPs: the GNN, recsys and LM parts
+of ``repro.launch.steps``.
 
 A cell is one (architecture × input shape) pair: the model config the
 cell builds (:func:`gnn_forward_builder`), its padded sizes
@@ -7,13 +7,16 @@ cell builds (:func:`gnn_forward_builder`), its padded sizes
 FLOPs of one forward (:func:`gnn_flops`; a train step is three times
 that) and the training loss (:func:`gnn_loss`: node cross-entropy over
 the valid nodes, or the graph-energy MSE). :func:`gnn_cell` puts them
-together for a port ``make_train_step``. The reference's cell also
-carries shardings and abstract inputs for a JAX mesh (``CellPlan``); on
-one card the port has no counterpart. Of the LM cells the port has the
-model FLOPs (:func:`lm_attn_flops`, :func:`lm_train_flops`,
+together for a port ``make_train_step``. :func:`recsys_cell` is a BST
+cell: its step (an AdamW train step, a forward, or retrieval scores),
+the shapes and dtypes of its batch, and its model FLOPs
+(:func:`recsys_flops`). The reference's cells also carry shardings and
+abstract inputs for a JAX mesh (``CellPlan``); on one card the port has
+no counterpart. Of the LM cells the port has the model FLOPs
+(:func:`lm_attn_flops`, :func:`lm_train_flops`,
 :func:`lm_prefill_flops`, :func:`lm_decode_flops`), for the card's model
-TFLOP/s, and a train cell's optimizer (:func:`pick_opt`); the recsys and
-TriPoll cells wait for the dry-run slice.
+TFLOP/s, and a train cell's optimizer (:func:`pick_opt`); the TriPoll
+cells wait for the dry-run slice.
 """
 from __future__ import annotations
 
@@ -23,8 +26,8 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch import configs as config_registry
-from repro_torch.configs.base import GNNConfig, LMConfig
-from repro_torch.train.optimizer import adafactor, adamw
+from repro_torch.configs.base import GNNConfig, LMConfig, RecSysConfig
+from repro_torch.train.optimizer import Optimizer, adafactor, adamw
 
 # ---------------------------------------------------------------------------
 # LM cells: model FLOPs
@@ -201,3 +204,69 @@ def gnn_cell(arch: str, shape: str, widths: str = "CONFIG") -> GNNCell:
     return GNNCell(arch, shape, cfg.family, m, mc, dims, e_pad, t_cap,
                    gnn_loss(cfg.family, m, mc, dims["task"]),
                    3.0 * gnn_flops(cfg.family, cfg, dims, t_cap))
+
+
+# ---------------------------------------------------------------------------
+# recsys cells
+
+RECSYS_BAG = 4            # ids a side-feature bag (the reference's cells)
+
+
+def recsys_flops(cfg: RecSysConfig) -> int:
+    """Model FLOPs of one sample's forward: the ranking MLP and the
+    transformer blocks (the reference's ``mlp_flops + attn_flops``)."""
+    d = cfg.embed_dim
+    dims = ((cfg.seq_len + 1) * d + cfg.n_sparse_fields * d,) \
+        + tuple(cfg.mlp_dims) + (1,)
+    mlp = sum(2 * a * b for a, b in zip(dims[:-1], dims[1:]))
+    attn = cfg.n_blocks * (cfg.seq_len + 1) ** 2 * d * 4 \
+        + cfg.n_blocks * 8 * d * d * (cfg.seq_len + 1)
+    return mlp + attn
+
+
+@dataclass(frozen=True)
+class RecSysCell:
+    arch: str
+    shape: str
+    kind: str             # train | serve | retrieval
+    cfg: RecSysConfig
+    batch: int            # samples a step (1 for retrieval)
+    inputs: dict          # the step's batch: name -> (shape, torch dtype)
+    fn: object            # train: (state, batch); else (params, batch)
+    opt: Optimizer | None  # the train step's optimizer
+    model_flops: float
+
+
+def recsys_cell(arch: str, shape: str, widths: str = "CONFIG") -> RecSysCell:
+    """The cell of recsys ``arch`` at ``shape`` (the ``name`` of one of its
+    ``SHAPES``), at the widths of the config module's ``CONFIG`` (or
+    ``SMOKE``): a train step of AdamW(1e-3) over ``loss_fn``, a forward, or
+    one history's retrieval scores over ``n_candidates`` padded up to a
+    multiple of 512, as the reference's ``_recsys_cell`` builds them."""
+    from repro_torch.models.recsys import bst
+    from repro_torch.train.trainer import make_train_step
+
+    mod = config_registry.get_arch(arch)
+    cfg: RecSysConfig = getattr(mod, widths)
+    cell = next(c for c in mod.SHAPES if c.name == shape)
+    B, S, F = cell.global_batch, cfg.seq_len, cfg.n_sparse_fields
+    i32, b8 = torch.int32, torch.bool
+    flops = recsys_flops(cfg)
+    if cell.kind in ("train", "serve"):
+        inputs = dict(hist=((B, S), i32), target=((B,), i32),
+                      fields=((B, F, RECSYS_BAG), i32),
+                      field_valid=((B, F, RECSYS_BAG), b8))
+        if cell.kind == "serve":
+            return RecSysCell(arch, shape, "serve", cfg, B, inputs,
+                              lambda p, b: bst.forward(cfg, p, b), None,
+                              float(B * flops))
+        inputs["label"] = ((B,), b8)
+        opt = adamw(1e-3)
+        fn = make_train_step(lambda p, b: bst.loss_fn(cfg, p, b), opt)
+        return RecSysCell(arch, shape, "train", cfg, B, inputs, fn, opt,
+                          3.0 * B * flops)
+    n_cand = _pad_up(cell.extras["n_candidates"], 512)
+    inputs = dict(hist=((1, S), i32), cand_ids=((n_cand,), i32))
+    return RecSysCell(arch, shape, "retrieval", cfg, 1, inputs,
+                      lambda p, b: bst.retrieval_scores(cfg, p, b), None,
+                      2.0 * n_cand * cfg.embed_dim)

@@ -15,13 +15,16 @@ operation (``erf_inv`` is Giles' single-precision polynomial, as XLA
 computes it; numpy's ``log1p`` is not XLA's), so a truncated normal
 lies within a few float32 roundings of the reference's (7.2e-7 at most
 over 19,200 draws) and the bits and uniforms are the reference's
-exactly. :func:`fold_in` and :func:`randint` (``int32``) are exact.
+exactly. :func:`fold_in`, :func:`randint` (``int32``) and
+:func:`bernoulli` are exact.
 
-:func:`torch_random_bits`, :func:`torch_uniform` and
-:func:`torch_truncated_normal` are the same draws as torch tensors on a
-given device, for weights too large to draw on the host (a full-width
-LM holds billions): the same bits and uniforms, and normals within a
-float32 rounding of this module's (``log1p`` is the device's).
+:func:`torch_random_bits`, :func:`torch_uniform`,
+:func:`torch_truncated_normal`, :func:`torch_randint` and
+:func:`torch_bernoulli` are the same draws as torch tensors on a given
+device, for weights and batches too large to draw on the host (a
+full-width LM holds billions of weights, a bulk recsys batch millions of
+ids): the same bits, uniforms, integers and booleans, and normals within
+a float32 rounding of this module's (``log1p`` is the device's).
 """
 from __future__ import annotations
 
@@ -30,8 +33,9 @@ import math
 import numpy as np
 
 __all__ = ["prng_key", "split", "fold_in", "random_bits", "uniform",
-           "truncated_normal", "randint", "torch_random_bits",
-           "torch_uniform", "torch_truncated_normal"]
+           "truncated_normal", "randint", "bernoulli", "torch_random_bits",
+           "torch_uniform", "torch_truncated_normal", "torch_randint",
+           "torch_bernoulli"]
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -156,6 +160,12 @@ def randint(key: np.ndarray, shape, minval: int, maxval: int) -> np.ndarray:
         return lo + off.astype(np.int32)
 
 
+def bernoulli(key: np.ndarray, p: float, shape) -> np.ndarray:
+    """``jax.random.bernoulli(key, p, shape)`` (its default ``mode="low"``):
+    a float32 :func:`uniform` below ``p`` rounded to float32."""
+    return uniform(key, shape) < np.float32(p)
+
+
 # ---------------------------------------------------------------------------
 # the same draws on a device
 
@@ -223,6 +233,40 @@ def torch_uniform(key: np.ndarray, shape, device, minval=0.0, maxval=1.0):
     lo, hi = np.float32(minval), np.float32(maxval)
     return _fill(shape, torch.float32, device,
                  lambda a, n: _uniform_chunk(key, a, n, lo, hi, device))
+
+
+def torch_randint(key: np.ndarray, shape, minval: int, maxval: int, device):
+    """:func:`randint` as an ``int32`` tensor on ``device``: the same two
+    bit streams and the same uint32 arithmetic, wrapped by a mask in
+    int64, so the same integers."""
+    import torch
+
+    lo, hi = int(np.int32(minval)), int(np.int32(maxval))
+    span = 1 if hi <= lo else hi - lo
+    # (2¹⁶ mod span)² wraps in uint32 before its own mod span, as the
+    # reference's multiplier does
+    mult = ((2 ** 16 % span) ** 2 & _M32) % span
+    k1, k2 = split(key)
+
+    def chunk(start, n):
+        higher = _bits_chunk(k1, start, n, device)
+        lower = _bits_chunk(k2, start, n, device)
+        off = (higher.remainder_(span).mul_(mult).bitwise_and_(_M32)
+               .add_(lower.remainder_(span)).bitwise_and_(_M32)
+               .remainder_(span))
+        return off.add_(lo)
+
+    return _fill(shape, torch.int32, device, chunk)
+
+
+def torch_bernoulli(key: np.ndarray, p: float, shape, device):
+    """:func:`bernoulli` as a bool tensor on ``device``."""
+    import torch
+
+    p32 = float(np.float32(p))
+    return _fill(shape, torch.bool, device,
+                 lambda a, n: _uniform_chunk(key, a, n, np.float32(0.0),
+                                             np.float32(1.0), device) < p32)
 
 
 def _erf_inv_t(x):
