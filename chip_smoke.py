@@ -130,7 +130,10 @@ Phases (every failure ends the run with a non-zero exit):
       this run; a short window of it is profiled for the device's idle
       share.
    c. the split pull kernel: TriangleCount push-pull with
-      ``pull_kernel="split"``, equal to the fused run in count and stats.
+      ``pull_kernel="split"`` on path b's graph (``BUNDLE_CUT_SCALES``
+      smaller, 17), its count the known count and its stats the fused
+      bundle's but the wire words (its plan is the bundle's but the wire
+      widths, checked).
    d. the hub lane: path a's graph, ``plan_engine(..., hub_theta="auto",
       hub_wedge_cap=2²⁰)``, TriangleCount and DegreeTriples push-pull:
       θ, the hub set and the hub steps as planned, the hub, push and pull
@@ -159,11 +162,12 @@ Phases (every failure ends the run with a non-zero exit):
       (DegreeTriples totalling it); 3 recompiles and 0 hits. Each
       request's wall, peak memory above what was resident, and the
       path's launches.
-   g. the mesh transport: path a's shards saved once, one file per rank;
-      S=8 rank processes sharing the card over gloo, each loading its
-      slice: TriangleCount push-pull on a ``transport="mesh"`` plan
-      (ragged caps in scheduled rounds, one ``batch_isend_irecv`` each),
-      each rank's result equal to path a's, and DegreeTriples push-pull
+   g. the mesh transport: path b's shards (scale 17, for the script's
+      time) saved once, one file per rank; S=8 rank processes sharing the
+      card over gloo, each loading its slice: TriangleCount push-pull on a
+      ``transport="mesh"`` plan (ragged caps in scheduled rounds, one
+      ``batch_isend_irecv`` each), each rank's result equal to path c's
+      stacked run and the known count, and DegreeTriples push-pull
       on path e's graph (scale 16, for the script's time; its shards
       saved the same way) on a dense plan relabelled mesh (uniform caps,
       one ``all_to_all_single``), each rank's result equal bit for bit to
@@ -282,6 +286,23 @@ Phases (every failure ends the run with a non-zero exit):
       the resident, serve p50 / p99, bulk and retrieval walls, one
       profiled call a cell (idle share). It launches no kernel of ours
       (checked).
+   n. the dry run (``path_dryrun``, after the capture run below, its
+      traces started beside that run: host work in six spawned
+      processes): ``launch.dryrun.run_cell`` traces six
+      cells on the meta device at their published widths
+      (``DRYRUN_CELLS``: tripoll × survey_pushpull at CONFIG and at one
+      shard of the deployment, bst × train_batch, schnet × molecule,
+      internlm2-1.8b × long_500k, kimi-k2 × decode_32k at one layer) and
+      prints each one's predicted peak, FLOPs, bytes and bound time. Each
+      cell predicted within ``DRYRUN_RUN_BYTES`` then runs once for real
+      on the card at the meta shapes (``run_for_real``: a warm-up, the
+      peak count reset, one timed call; floating inputs from a seeded
+      ``torch.Generator``, the tripoll shard a zero ``dodgr_spec`` graph
+      with ``dryrun_graph``'s 256 K4s embedded, its ClosureTime total ==
+      the graph's triangles and no window overflowing). Checks: a model
+      cell's measured peak within ``DRYRUN_PEAK_RTOL`` of its prediction,
+      the survey's at or below it; wedge_check, wedge_intersect and
+      hist_add launch, under the allocator's expandable segments.
 
    Every run is exact and every kernel of a path launched on it. Every
    plan a path runs is audited by ``repro_torch.analysis.check_plan``
@@ -314,7 +335,7 @@ Phases (every failure ends the run with a non-zero exit):
    wedge_intersect at rank 0's largest launch on path g, with path g's
    launches; fold_count_max on path a's largest fold with rows of 16
    words (no real call); every row with the kernel's launches on each
-   path a–m (paths j, k, l and m: 0). On lines before the
+   path a–n (paths j, k, l and m: 0). On lines before the
    JSON: wedge_intersect at the fullest and at the last pull superstep,
    the fold_count_max launch bins, and the same measures of
    fold_count_max at its typical fold.
@@ -327,6 +348,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import importlib
 import json
 import os
@@ -349,8 +371,9 @@ FULL_TRIANGLES = 82_824_164    # its triangle count (the cell's known count)
 # same while paths are added): push-only supersteps are host-bound
 CUT_SCALES = 2
 PUSH_CUT_SCALES = 3
-# path b's bundle runs on the same R-MAT this many scales below, for the
-# script's time: at 18 it was its longest path (185-189 s)
+# path b's bundle and path c's split lane run on the same R-MAT this many
+# scales below, for the script's time: at 18 the bundle was its longest
+# path (185-189 s) and path c took 34.4 s
 BUNDLE_CUT_SCALES = 1
 PROFILE_PULL_STEPS = 16        # pull supersteps in a profiled window
 INT32_MIN = -(2**31)
@@ -416,12 +439,13 @@ PATH_KERNELS = {
     "lm": (),
     "train": (),
     "recsys": (),
+    "dryrun": ("wedge_check", "wedge_intersect", "hist_add"),
 }
 # the letters PERF.md gives the full-size paths
 PATH_LETTERS = {"first": "a", "bundle": "b", "split": "c", "hub": "d",
                 "delta": "e", "served": "f", "mesh": "g", "served_mesh": "h",
                 "downstream": "i", "zoo": "j", "lm": "k",
-                "train": "l", "recsys": "m"}
+                "train": "l", "recsys": "m", "dryrun": "n"}
 REPORTED_PATH = {"wedge_check": "first", "wedge_intersect": "first",
                  "fold_count_max": "first", "ring_set": "bundle",
                  "hist_add": "bundle", "hist_max": "bundle",
@@ -2120,26 +2144,35 @@ def phase_full(torch, report, scale, dev):
                 torch, f"bundle, {PROFILE_PULL_STEPS} pull supersteps",
                 lambda: survey_push_pull(gr_lab, bundle, window))
 
-    del gr_lab
-
-    # path c: the split pull kernel
-    survey, cfg, _ = plans[("TriangleCount", "pushpull")]
-    split = dataclasses.replace(cfg, pull_kernel="split")
-    audit_plan(full, "c TriangleCount pushpull split", split,
-               reports[("TriangleCount", "pushpull")])
+    # path c: the split pull kernel, TriangleCount on path b's graph (at
+    # 18 it took 34.4 s of the script's time). Its plan differs from the
+    # bundle's only in the wire widths, so every stat but the wire words
+    # equals path b's fused run's.
+    survey = TriangleCount()
+    cfg_c, plan_c_s, rep_c = plan(g_lab, survey, "pushpull")
+    split = dataclasses.replace(cfg_c, pull_kernel="split")
+    require(dataclasses.replace(cfg_c, meta_widths=None, determinism=None)
+            == dataclasses.replace(cfg_b, meta_widths=None, determinism=None),
+            "path c's plan differs from the bundle's beyond its wire widths")
+    audit_plan(full, "c TriangleCount pushpull split", split, rep_c)
     rec_is = Recorder(isx, "intersect", torch)
     t0 = time.perf_counter()
     (res_s, st_s), launches["split"] = run_path(
-        torch, dev, "split", lambda: survey_push_pull(gr, survey, split))
+        torch, dev, "split", lambda: survey_push_pull(gr_lab, survey, split))
     full["split_s"] = time.perf_counter() - t0
+    full["split_plan_s"] = plan_c_s
     rec_is.restore()
     require(launches["split"]["wedge_intersect"] == 0,
             "the split path launched wedge_intersect")
-    res_f, st_f = results[("TriangleCount", "pushpull")]
-    require(res_s == res_f, f"split count {res_s} != fused {res_f}")
-    require(st_s == st_f, "split stats != fused stats")
-    log(f"survey TriangleCount pushpull split: {full['split_s']:.2f} s == fused; "
-        f"launches {launches['split']}")
+    require(res_s == expect_b, f"split count {res_s} != {expect_b}")
+    wire = ("wire_push_words", "wire_req_words", "wire_reply_words",
+            "n_surveys")
+    require({k: v for k, v in st_s.items() if k not in wire}
+            == {k: v for k, v in st_b.items() if k not in wire},
+            "split stats != the fused bundle's")
+    log(f"survey TriangleCount pushpull split (rmat{scale - BUNDLE_CUT_SCALES}): "
+        f"{full['split_s']:.2f} s == the known count, stats == path b's fused "
+        f"run's; launches {launches['split']}")
 
     lane_rows = paths_hub_delta(
         torch, dev, full, g, S, expect,
@@ -2148,8 +2181,9 @@ def phase_full(torch, report, scale, dev):
     rows_f, f_out = path_served(torch, dev, full, g_push, S, expect_push,
                                 launches)
     lane_rows += rows_f
-    lane_rows += path_mesh(torch, dev, full, g, gr, expect, plans, reports,
-                           results, launches, g_cut, expect_cut)
+    lane_rows += path_mesh(torch, dev, full, g_lab, gr_lab, expect_b, plans,
+                           res_s, launches, g_cut, expect_cut)
+    del gr_lab
     path_served_mesh(torch, dev, full, g_push, MESH_FULL_S, f_out, launches)
     counts_i = path_downstream(torch, dev, full, g, gr, S, launches)
     t0 = time.perf_counter()
@@ -2181,6 +2215,9 @@ def phase_full(torch, report, scale, dev):
     require(not any(launches["recsys"].values()),
             f"path m launched a kernel of the survey path: {launches['recsys']}")
     log(f"path m: {full['recsys']['wall_s']:.2f} s, no kernel of ours launched")
+    # path n's meta traces are host work: they run beside the capture run,
+    # whose wall no metric reads; path n itself runs after it
+    traces = start_dryrun_traces() if dev.type == "cuda" else None
 
     # capture one superstep's inputs of each kernel: DegreeTriples,
     # Enumerate and LocalVertexCount bundled on path a's graph run
@@ -2284,6 +2321,13 @@ def phase_full(torch, report, scale, dev):
     log("full: each kernel == its plain version on captured superstep inputs "
         "(paths d, e and f: each lane's largest launch); hist_add + hist_max == "
         "fold_count_max")
+    with expandable_segments(torch, dev):
+        _, launches["dryrun"] = run_path(
+            torch, dev, "dryrun",
+            lambda: path_dryrun(torch, dev, full, traces=traces))
+    log(f"path n: {full['dryrun']['wall_s']:.2f} s (its traces "
+        f"{full['dryrun']['trace_wall_s']:.2f} s, beside the capture run), "
+        f"launches {launches['dryrun']}")
     return captured, launches, errs
 
 
@@ -2809,14 +2853,15 @@ def path_served_mesh(torch, dev, full, g, S, f_out, launches):
         f"reconciled per traversal")
 
 
-def path_mesh(torch, dev, full, g, gr, expect, plans, reports, results,
-              launches, g_cut, expect_cut):
-    """Full-size path g, the mesh transport: path a's graph ``g`` and its
-    stacked shards ``gr`` (saved once, one file per rank, each rank
-    loading its slice), S=8 rank processes sharing the card over gloo
-    (every collective staged through host memory). TriangleCount
-    push-pull on a ``transport="mesh"`` plan (ragged caps, scheduled
-    rounds) equals path a's count, the known ``expect``; DegreeTriples
+def path_mesh(torch, dev, full, g, gr, expect, plans, tc_want, launches,
+              g_cut, expect_cut):
+    """Full-size path g, the mesh transport: path b's graph ``g`` (scale
+    17, for the script's time) and its stacked shards ``gr`` (saved once,
+    one file per rank, each rank loading its slice), S=8 rank processes
+    sharing the card over gloo (every collective staged through host
+    memory). TriangleCount push-pull on a ``transport="mesh"`` plan
+    (ragged caps, scheduled rounds) equals the stacked run's count
+    ``tc_want`` (path c's), the known ``expect``; DegreeTriples
     push-pull on ``g_cut`` (``CUT_SCALES`` smaller, for the script's
     time) on a dense plan relabelled mesh (uniform caps:
     all_to_all_single) equals the stacked run of the dense plan on the
@@ -2832,8 +2877,9 @@ def path_mesh(torch, dev, full, g, gr, expect, plans, reports, results,
     from repro_torch.launch.mesh import RankRun, save_slices
 
     S = MESH_FULL_S
-    require(gr.S == S, f"path g needs path a's {S} shards")
+    require(gr.S == S, f"path g needs {S} shards")
     mesh = full["mesh"] = dict(S=S, backend="gloo",
+                               triangle_count_scale=int(np.log2(g.n)),
                                degree_triples_scale=int(np.log2(g_cut.n)))
     survey_tc, _, _ = plans[("TriangleCount", "pushpull")]
     survey_dt, _, _ = plans[("DegreeTriples", "pushpull")]
@@ -2892,8 +2938,7 @@ def path_mesh(torch, dev, full, g, gr, expect, plans, reports, results,
                 "the parent launched a kernel during path g")
         summary = mesh_summary(ranks, {"TriangleCount": 0, "DegreeTriples": 1})
         for i, name in enumerate(("TriangleCount", "DegreeTriples")):
-            want, total_want = ((results[(name, "pushpull")][0], expect),
-                                (dt_cut, expect_cut))[i]
+            want, total_want = ((tc_want, expect), (dt_cut, expect_cut))[i]
             outs = [r["outputs"][i] for r in ranks]
             for r, o in enumerate(outs):
                 tag = f"path g {backend} {name} rank {r}"
@@ -4224,6 +4269,196 @@ def path_recsys(torch, dev, full, widths="CONFIG"):
         f"{out['bf16_scores_rel_l2']:.3e} (rtol {RECSYS_BF16_RTOL}); checks "
         f"{out['bf16_check_s']:.2f} s")
     return out
+
+
+# ---------------------------------------------------------------------------
+# path n: the dry run's predictions, held to the card where they fit
+
+# (arch, shape, CONFIG overrides): traced on meta at published widths
+DRYRUN_CELLS = (
+    ("tripoll", "survey_pushpull", None),
+    # one shard of the paper's deployment: CONFIG's n_loc (4,194,304) and
+    # e_cap (134,217,728) per device
+    ("tripoll", "survey_pushpull", dict(n_global=4_194_304, e_cap=524_288)),
+    ("bst", "train_batch", None),
+    ("schnet", "molecule", None),
+    ("internlm2-1.8b", "long_500k", None),
+    # one MoE layer of kimi-k2 at its published widths
+    ("kimi-k2-1t-a32b", "decode_32k", dict(n_layers=1)),
+)
+DRYRUN_RUN_BYTES = 75e9     # run a cell for real where its predicted peak fits
+DRYRUN_PEAK_RTOL = 0.10     # a model cell's measured peak vs the prediction
+DRYRUN_CLIQUES = 256        # K4s embedded in the tripoll cell's real run
+
+
+def dryrun_graph():
+    """``DRYRUN_CLIQUES`` disjoint 4-cliques with seeded float timestamps:
+    4 triangles each, and no vertex with more than 3 in-edges, so the
+    deployment plan's pull windows (``pull_q_cap`` 2 rows of at most
+    ``pull_edge_cap`` 8 edges a superstep) never overflow."""
+    from repro_torch.graphs.csr import HostGraph
+
+    pairs = np.array([(a, b) for a in range(4) for b in range(a + 1, 4)])
+    base = 4 * np.arange(DRYRUN_CLIQUES)[:, None, None]
+    e = (base + pairs[None]).reshape(-1, 2)
+    ts = np.random.default_rng(7).integers(1, 1 << 20, len(e))
+    return HostGraph.from_edges(4 * DRYRUN_CLIQUES, e[:, 0], e[:, 1],
+                                emeta_f=ts[:, None].astype(np.float32))
+
+
+def embed_graph(torch, gr, g):
+    """Write the S = 1 shard of the small graph ``g`` into the first rows
+    and edge slots of ``gr`` (a zero ``dodgr_spec`` graph on the card):
+    every other row is empty, so the survey sees ``g``'s triangles and
+    nothing else."""
+    from repro_torch.core.dodgr import PER_SHARD_FIELDS, shard_dodgr
+
+    small, _ = shard_dodgr(g, 1, device=gr.device)
+    require(small.d_plus_max <= gr.d_plus_max and small.e_cap <= gr.e_cap
+            and small.n_loc <= gr.n_loc, "embedded graph larger than the cell")
+    for f in PER_SHARD_FIELDS:
+        dst, src = getattr(gr, f), getattr(small, f)
+        if src.shape[2:] != dst.shape[2:]:
+            continue                    # a metadata width the cell lacks
+        n = src.shape[1]
+        dst[:, :n] = src
+        if f == "row_ptr":
+            dst[:, n:] = src[:, -1:]    # the rows past g's are empty
+
+
+def run_for_real(torch, dev, arch, shape, overrides, rec) -> dict:
+    """Run the cell once for real on the card at the meta shapes: a
+    warm-up, the peak count reset, one timed call. Model cells' floating
+    inputs are drawn from a seeded ``torch.Generator`` (their values play
+    no part), integer and boolean ones are zero; the tripoll cell's graph
+    is ``dodgr_spec(..., device=cuda)`` with ``dryrun_graph()`` embedded
+    in its first rows (``embed_graph``), so its folds launch, and its
+    ClosureTime histogram must total the graph's triangles. The measured
+    peak is the card's peak above what was allocated before the inputs,
+    less what the warm-up left allocated besides them once Python's
+    cyclic garbage is collected (cuBLAS workspaces, cached constants:
+    those the trace does not see)."""
+    from repro_torch.core.ref import count_triangles_ref
+    from repro_torch.launch.steps import build_cell, map_tensors, tensor_leaves
+
+    sync(torch, dev)
+    base = memory_reset(torch, dev)
+    if arch == "tripoll":
+        plan = build_cell(arch, shape, overrides=overrides, device=dev)
+        g = dryrun_graph()
+        embed_graph(torch, plan.args[0], g)
+        args = plan.args
+    else:
+        plan = build_cell(arch, shape, overrides=overrides)
+        gen = torch.Generator(device=dev).manual_seed(0)
+
+        def draw(t):
+            x = torch.zeros(t.shape, dtype=t.dtype, device=dev)
+            return x.normal_(0.0, 0.02, generator=gen) if x.is_floating_point() else x
+        args = map_tensors(draw, plan.args)
+    keys = {t.untyped_storage()._cdata: t.untyped_storage().nbytes()
+            for t in tensor_leaves(args)}
+    in_bytes = sum(keys.values())
+    out = plan.fn(*args)
+    del out
+    gc.collect()
+    sync(torch, dev)
+    extra = memory_reset(torch, dev) - base - in_bytes
+    t0 = time.perf_counter()
+    out = plan.fn(*args)
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    peak = peak_memory(torch, dev) - base - extra
+    row = dict(measured_peak_bytes=peak, warmup_extra_bytes=extra,
+               input_bytes=in_bytes, wall_s=wall,
+               peak_ratio=peak / rec["peak_device_bytes"],
+               wall_over_bound=wall / rec["bound_time_s"])
+    if arch == "tripoll":
+        merged, stats = out
+        want = count_triangles_ref(g)
+        row.update(triangles=int(merged.sum()), expect=want,
+                   stats={k: stats[k] for k in ("stream_dropped",
+                                                "pull_overflow")})
+        require(row["triangles"] == want and stats["stream_dropped"] == 0
+                and stats["pull_overflow"] == 0,
+                f"path n: ClosureTime total {row['triangles']} != {want} "
+                f"or a window overflowed ({row['stats']})")
+    del out, args, plan
+    sync(torch, dev)
+    return row
+
+
+def start_dryrun_traces(cells=DRYRUN_CELLS):
+    """Start ``launch.dryrun.run_cell`` on each of ``cells``, one spawned
+    process a cell, all at once: host work on the meta device, so it can
+    run beside the card's paths. Returns ``(pool, futures, t_start)`` for
+    ``path_dryrun``, which reads every result and shuts the pool down."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.launch.dryrun import run_cell
+
+    pool = ProcessPoolExecutor(len(cells), mp_context=multiprocessing
+                               .get_context("spawn"))
+    return pool, [pool.submit(run_cell, *c) for c in cells], time.perf_counter()
+
+
+def path_dryrun(torch, dev, full, cells=DRYRUN_CELLS, traces=None):
+    """Path n: ``launch.dryrun.run_cell`` on each of ``cells`` (a meta
+    trace at published widths: predicted peak, FLOPs, bytes, bound time;
+    ``traces`` from ``start_dryrun_traces``, started here if not given),
+    then the cells predicted to fit in ``DRYRUN_RUN_BYTES`` once for real
+    (``run_for_real``): on the card a model cell's measured peak within
+    ``DRYRUN_PEAK_RTOL`` of its prediction, a survey's at or below it
+    (every lane counts as valid in the trace). Rehearse it on the CPU with
+    smaller cells (no peak there): ``path_dryrun(torch,
+    torch.device("cpu"), {}, cells=...)``."""
+    rows = full["dryrun"] = dict(cells=[])
+    t_start = time.perf_counter()
+    pool, futures, t_traces = traces or start_dryrun_traces(cells)
+    try:
+        recs = [f.result() for f in futures]
+    finally:
+        pool.shutdown()
+    rows["trace_wall_s"] = time.perf_counter() - t_traces
+    rows["trace_wait_s"] = time.perf_counter() - t_start
+    for (arch, shape, overrides), rec in zip(cells, recs):
+        require(rec["ok"], f"path n: {arch} x {shape} failed to trace: "
+                f"{rec.get('error')}")
+        row = dict(arch=arch, shape=shape, overrides=overrides,
+                   note=rec["note"], fits_hbm=rec["fits_hbm"],
+                   peak_device_bytes=rec["peak_device_bytes"],
+                   flops=rec["flops_per_device"],
+                   bytes=rec["bytes_per_device"],
+                   dominant=rec["dominant"], bound_time_s=rec["bound_time_s"],
+                   model_flops=rec["model_flops_total"],
+                   roofline_fraction=rec["roofline_fraction"],
+                   trace_s=rec["trace_s"], n_ops=rec["counts"]["n_ops"])
+        log(f"dryrun {arch} x {shape} {overrides or ''}: predicted peak "
+            f"{row['peak_device_bytes'] / 1e9:.3f} GB (fits {row['fits_hbm']}), "
+            f"{row['flops']:.4e} FLOP, {row['bytes']:.4e} B, {row['dominant']} "
+            f"bound {row['bound_time_s']:.6f} s; traced in {row['trace_s']} s "
+            f"({row['n_ops']} ops)")
+        if row["peak_device_bytes"] <= DRYRUN_RUN_BYTES:
+            row.update(run_for_real(torch, dev, arch, shape, overrides, rec))
+            log(f"dryrun {arch} x {shape}: measured peak "
+                f"{row['measured_peak_bytes'] / 1e9:.3f} GB "
+                f"({row['peak_ratio']:.4f} of predicted; warm-up left "
+                f"{row['warmup_extra_bytes'] / 2**20:.1f} MiB), wall "
+                f"{row['wall_s']:.4f} s ({row['wall_over_bound']:.2f} x bound)")
+        rows["cells"].append(row)
+    rows["wall_s"] = time.perf_counter() - t_start
+    for row in rows["cells"]:
+        if dev.type != "cuda" or "measured_peak_bytes" not in row:
+            continue
+        tag = f"path n: {row['arch']} x {row['shape']}"
+        if row["arch"] == "tripoll":
+            require(row["measured_peak_bytes"] <= row["peak_device_bytes"],
+                    f"{tag} measured peak above the prediction")
+        else:
+            require(abs(row["peak_ratio"] - 1) <= DRYRUN_PEAK_RTOL,
+                    f"{tag} measured peak {row['peak_ratio']:.4f} of the "
+                    "prediction")
 
 
 # the port's kernels as the profiler names them (fold_kernel: the fold body

@@ -1,5 +1,5 @@
-"""Architecture registry: ``get_arch(<id>)`` over the architectures the
-port has so far. Any other id raises the reference's ``KeyError``."""
+"""Architecture registry: ``get_arch(<id>)`` over the reference's eleven
+architectures. Any other id raises the reference's ``KeyError``."""
 from __future__ import annotations
 
 import importlib
@@ -18,6 +18,8 @@ ARCH_IDS = {
     "equiformer-v2": "equiformer_v2",
     # recsys (1)
     "bst": "bst",
+    # the paper's own workload
+    "tripoll": "tripoll",
 }
 
 

@@ -2,12 +2,12 @@
 
 The twin of ``repro.configs.base``, for the families ported so far: the
 LM transformers (``MoESpec``, ``LMConfig``, ``LM_SHAPES``), the GNNs
-(``GNNConfig``, ``GNN_SHAPES``) and the ``ShapeCell`` they use. One file
-per ported architecture lives next to this module and exports ``CONFIG``
-(the exact published shapes), ``SMOKE`` (a reduced same-family variant
-for CPU tests), ``SHAPES`` (its input-shape cells), ``KIND`` and, where
-the reference names one, ``OPTIMIZER``. The TriPoll dry-run config comes
-with its slice.
+(``GNNConfig``, ``GNN_SHAPES``), the recsys model (``RecSysConfig``,
+``RECSYS_SHAPES``), TriPoll's own workload (``TriPollConfig``) and the
+``ShapeCell`` they use. One file per architecture lives next to this
+module and exports ``CONFIG`` (the exact published shapes), ``SMOKE`` (a
+reduced same-family variant for CPU tests), ``SHAPES`` (its input-shape
+cells), ``KIND`` and, where the reference names one, ``OPTIMIZER``.
 """
 from __future__ import annotations
 
@@ -162,3 +162,27 @@ class RecSysConfig:
     n_sparse_fields: int = 8            # side-feature fields
     vocab_per_field: int = 100_000
     dtype: str = "bfloat16"
+
+
+# ---------------------------------------------------------------------------
+# TriPoll (the paper's own workload as a dry-runnable arch)
+
+
+@dataclass(frozen=True)
+class TriPollConfig:
+    name: str
+    n_global: int
+    n_loc: int
+    e_cap: int                  # oriented edges per shard (padded)
+    d_plus_max: int
+    dvi: int = 0
+    dvf: int = 0
+    dei: int = 0
+    def_: int = 0
+    mode: str = "pushpull"
+    push_cap: int = 2048
+    n_push_steps: int = 64
+    pull_q_cap: int = 64
+    pull_edge_cap: int = 128
+    n_pull_steps: int = 16
+    unroll: bool = False        # kept for parity (the supersteps are loops)

@@ -666,3 +666,39 @@ def shard_slice(gr: ShardedDODGr, rank: int, device=None) -> ShardedDODGr:
     for f in REPLICATED_FIELDS:
         kw[f] = getattr(gr, f).to(dev)
     return ShardedDODGr(**kw)
+
+
+def dodgr_spec(S: int, n_global: int, n_loc: int, e_cap: int, d_plus_max: int,
+               dvi: int, dvf: int, dei: int, def_: int,
+               hub_theta: int = 0, n_hubs: int = 0, hub_len: int = 1,
+               device="meta") -> ShardedDODGr:
+    """A :class:`ShardedDODGr` of the JAX package's ``dodgr_spec`` shapes
+    (its ``ShapeDtypeStruct`` stand-in for the dry run): on the meta device
+    (the default) nothing is allocated; on a real device every array is
+    zero, an empty graph of those shapes (no row has an edge). uint32
+    lanes are int32, as everywhere in the port."""
+    dev = torch.device(device)
+    i32, f32, b8 = torch.int32, torch.float32, torch.bool
+    hc = max(1, n_hubs)
+    shapes = dict(
+        row_ptr=((S, n_loc + 1), i32), edge_src=((S, e_cap), i32),
+        nbr=((S, e_cap), i32), nbr_d=((S, e_cap), i32),
+        nbr_h=((S, e_cap), i32), nbr_dplus=((S, e_cap), i32),
+        emeta_i=((S, e_cap, dei), i32), emeta_f=((S, e_cap, def_), f32),
+        tmeta_i=((S, e_cap, dvi), i32), tmeta_f=((S, e_cap, dvf), f32),
+        vmeta_i=((S, n_loc, dvi), i32), vmeta_f=((S, n_loc, dvf), f32),
+        vdeg=((S, n_loc), i32), dplus=((S, n_loc), i32),
+        nbr_new=((S, e_cap), b8), delta_gen=((S, e_cap), b8),
+        nbr_hub=((S, e_cap), i32), hub_row_len=((hc,), i32),
+        hub_nbr=((hc, hub_len), i32), hub_nbr_d=((hc, hub_len), i32),
+        hub_nbr_h=((hc, hub_len), i32), hub_nbr_new=((hc, hub_len), b8),
+        hub_eqr_i=((hc, hub_len, dei), i32), hub_eqr_f=((hc, hub_len, def_), f32),
+        hub_tmeta_i=((hc, hub_len, dvi), i32),
+        hub_tmeta_f=((hc, hub_len, dvf), f32),
+        hub_vmeta_i=((hc, dvi), i32), hub_vmeta_f=((hc, dvf), f32),
+    )
+    kw = {f: torch.zeros(shape, dtype=dt, device=dev)
+          for f, (shape, dt) in shapes.items()}
+    return ShardedDODGr(S=S, n_global=n_global, n_loc=n_loc, e_cap=e_cap,
+                        d_plus_max=d_plus_max, hub_theta=hub_theta,
+                        n_hubs=n_hubs, hub_len=hub_len, **kw)

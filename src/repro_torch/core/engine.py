@@ -27,7 +27,8 @@ positions, so results and stats are the same.
 Kernel or plain: the device alone decides. On CUDA tensors the push and
 pull searches and the survey folds launch the hand-written kernels
 (``repro_torch/csrc``); on CPU tensors they run the kernels' plain PyTorch
-versions. ``EngineConfig.use_pallas`` and ``pallas_interpret`` are kept so
+versions; on meta tensors (a dry-run trace, ``launch/dryrun.py``) they
+give the kernels' output shapes. ``EngineConfig.use_pallas`` and ``pallas_interpret`` are kept so
 configurations compare field by field with the JAX package, whose
 ``plan_engine`` defaults to ``use_pallas=False``; they choose nothing here.
 
@@ -618,7 +619,9 @@ def _pull_compute(gr: ShardedDODGr, ps: dict, t: int, cfg: EngineConfig,
 class _F32Stats:
     """Float32 stat sums with the JAX package's rounding: every stat adds
     one exact integer per superstep, in order. Contributions stay on the
-    device until :meth:`result`, so the loops never wait for the card."""
+    device until :meth:`result`, so the loops never wait for the card. On
+    the meta device (a dry-run trace) nothing is read back: a stat with a
+    device contribution is NaN."""
 
     KEYS = ("wedges_pushed", "tris_push", "wedges_pulled", "tris_pull",
             "wedges_hub", "tris_hub", "pull_requests", "pull_overflow",
@@ -636,8 +639,11 @@ class _F32Stats:
         for key, parts in self._parts.items():
             vals = [int(v) if isinstance(v, (int, float)) else v for v in parts]
             dev = [v for v in vals if isinstance(v, torch.Tensor)]
-            host = iter(torch.stack([v.to(torch.int64) for v in dev]).cpu().tolist()
-                        if dev else [])
+            stacked = torch.stack([v.to(torch.int64) for v in dev]) if dev else None
+            if stacked is not None and stacked.device.type == "meta":
+                out[key] = float("nan")
+                continue
+            host = iter(stacked.cpu().tolist() if dev else [])
             acc = np.float32(0.0)
             for v in vals:
                 x = next(host) if isinstance(v, torch.Tensor) else v

@@ -229,7 +229,12 @@ class TriangleBatch:
         """Indices of the valid lanes, found once per batch (one host sync)
         and shared by every fold that reads only valid lanes: a fold whose
         masked lanes would add only identities folds these alone, the same
-        table from a fraction of a padded pull window."""
+        table from a fraction of a padded pull window. On the meta device
+        (a dry-run trace) every lane counts as valid: the reference's
+        static fold width, so a prediction built on it is an upper
+        bound."""
+        if self.valid.device.type == "meta":
+            return torch.arange(self.valid.shape[0], device=self.valid.device)
         return self.valid.nonzero().squeeze(1)
 
 

@@ -3,7 +3,8 @@ ring_set (last-writer-wins scatter-set into a carried table).
 
 Each wrapper launches its CUDA kernel (``csrc/fold_scatter.cu``) for CUDA
 tensors and takes its plain PyTorch version for CPU tensors; the device
-alone decides. They replace the JAX package's
+alone decides (meta tensors: the kernel's output shapes,
+:mod:`repro_torch.kernels._meta`). They replace the JAX package's
 ``kernels/fold_scatter/fold_scatter.py::fold_count_max_pallas`` and
 ``ring_set_pallas``.
 """
@@ -11,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _cuda
+from repro_torch.kernels import _cuda, _meta
 from repro_torch.kernels.hist.ops import hist_add_plain, hist_max_plain
 
 launches = 0            # fold_count_max kernel launches (not the plain path)
@@ -44,6 +45,8 @@ def fold_count_max(slots, amounts, rows, capacity: int):
     [capacity, W])``."""
     if slots.device.type == "cpu":
         return fold_count_max_plain(slots, amounts, rows, capacity)
+    if slots.device.type == "meta":
+        return _meta.call("fold_count_max", slots, amounts, rows, capacity)
     if slots.device.type != "cuda":
         raise ValueError(f"fold_count_max: unsupported device {slots.device}")
     global launches
@@ -105,6 +108,9 @@ def ring_set(prior, slots, rows, capacity: int):
     int32, B < 2³¹. Returns [capacity, 3]."""
     if slots.device.type == "cpu":
         return ring_set_plain(prior, slots, rows, capacity)
+    if slots.device.type == "meta":
+        return _meta.call("ring_set", prior, slots, list(_columns(rows)),
+                          capacity)
     if slots.device.type != "cuda":
         raise ValueError(f"ring_set: unsupported device {slots.device}")
     global ring_set_launches

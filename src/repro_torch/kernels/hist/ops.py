@@ -3,16 +3,17 @@ scatter-max), each into a fresh zeroed table.
 
 Each wrapper launches its CUDA kernel (``csrc/hist.cu``) for CUDA tensors
 and takes its plain PyTorch version for CPU tensors; the device alone
-decides. They replace the JAX package's ``kernels/hist/hist.py::
-hist_add_pallas`` and ``hist_max_pallas``. In the port, ``hist_add`` folds
-the dense-histogram surveys and the pair carries the counting set's
-``"scatter"`` backend (:mod:`repro_torch.core.counting_set`).
+decides (meta tensors: the kernel's output shapes,
+:mod:`repro_torch.kernels._meta`). They replace the JAX package's
+``kernels/hist/hist.py::hist_add_pallas`` and ``hist_max_pallas``. In the
+port, ``hist_add`` folds the dense-histogram surveys and the pair carries
+the counting set's ``"scatter"`` backend (:mod:`repro_torch.core.counting_set`).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _cuda
+from repro_torch.kernels import _cuda, _meta
 from repro_torch.utils import INT32_MIN, u32_key
 
 hist_add_launches = 0   # hist_add kernel launches (not the plain path)
@@ -59,6 +60,8 @@ def hist_add(slots, amounts, capacity: int):
     ``slots``, ``amounts`` [B] int32. Returns [capacity] int32."""
     if slots.device.type == "cpu":
         return hist_add_plain(slots, amounts, capacity)
+    if slots.device.type == "meta":
+        return _meta.call("hist_add", slots, amounts, capacity)
     if slots.device.type != "cuda":
         raise ValueError(f"hist_add: unsupported device {slots.device}")
     global hist_add_launches
@@ -87,6 +90,8 @@ def hist_max(slots, rows, capacity: int):
     bits). Returns [capacity, W] int32 holding uint32 bits."""
     if slots.device.type == "cpu":
         return hist_max_plain(slots, rows, capacity)
+    if slots.device.type == "meta":
+        return _meta.call("hist_max", slots, rows, capacity)
     if slots.device.type != "cuda":
         raise ValueError(f"hist_max: unsupported device {slots.device}")
     global hist_max_launches

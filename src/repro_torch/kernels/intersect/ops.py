@@ -3,14 +3,15 @@ split pull lane).
 
 The wrapper launches the CUDA kernel (``csrc/intersect.cu``) for CUDA
 tensors and takes the plain PyTorch version for CPU tensors; the device
-alone decides. It replaces the JAX package's
+alone decides (meta tensors: the kernel's output shapes,
+:mod:`repro_torch.kernels._meta`). It replaces the JAX package's
 ``kernels/intersect/intersect.py::intersect_pallas``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _cuda
+from repro_torch.kernels import _cuda, _meta
 from repro_torch.kernels.wedge_check.ops import lower_bound_steps
 from repro_torch.utils import u32_key
 
@@ -46,6 +47,8 @@ def intersect(row_d, row_h, row_i, ln, qd, qh, qi):
     Returns [B, L] int32. Hits are ``pos < ln`` and ``row_i[pos] == qi``."""
     if qd.device.type == "cpu":
         return intersect_plain(row_d, row_h, row_i, ln, qd, qh, qi)
+    if qd.device.type == "meta":
+        return _meta.call("intersect", row_d, row_h, row_i, ln, qd, qh, qi)
     if qd.device.type != "cuda":
         raise ValueError(f"intersect: unsupported device {qd.device}")
     global launches

@@ -2,7 +2,8 @@
 
 The wrapper launches the CUDA kernel (``csrc/wedge_check.cu``) for CUDA
 tensors and takes the plain PyTorch version for CPU tensors; the device
-alone decides. It replaces the JAX package's
+alone decides (meta tensors: the kernel's output shapes,
+:mod:`repro_torch.kernels._meta`). It replaces the JAX package's
 ``kernels/wedge_check/wedge_check.py::wedge_check_pallas``.
 """
 from __future__ import annotations
@@ -10,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.kernels import _cuda
+from repro_torch.kernels import _cuda, _meta
 from repro_torch.utils import u32_key
 
 launches = 0   # kernel launches made by this wrapper (not by the plain path)
@@ -52,6 +53,9 @@ def wedge_check(keys_d, keys_h, keys_i, lo, hi, qd, qh, qi):
     One CUDA launch covers all S shards."""
     if keys_d.device.type == "cpu":
         return wedge_check_plain(keys_d, keys_h, keys_i, lo, hi, qd, qh, qi)
+    if keys_d.device.type == "meta":
+        return _meta.call("wedge_check", keys_d, keys_h, keys_i, lo, hi, qd,
+                          qh, qi)
     if keys_d.device.type != "cuda":
         raise ValueError(f"wedge_check: unsupported device {keys_d.device}")
     global launches

@@ -2,14 +2,15 @@
 
 The wrapper launches the CUDA kernel (``csrc/wedge_intersect.cu``) for
 CUDA tensors and takes the plain PyTorch version for CPU tensors; the
-device alone decides. It replaces the JAX package's
+device alone decides (meta tensors: the kernel's output shapes,
+:mod:`repro_torch.kernels._meta`). It replaces the JAX package's
 ``kernels/wedge_intersect/wedge_intersect.py::wedge_intersect_pallas``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _cuda
+from repro_torch.kernels import _cuda, _meta
 from repro_torch.kernels.wedge_check.ops import lower_bound_steps
 from repro_torch.utils import u32_key
 
@@ -57,6 +58,9 @@ def wedge_intersect(keys_d, keys_h, keys_i, e, row_d, row_h, row_i, ln,
     if keys_d.device.type == "cpu":
         return wedge_intersect_plain(keys_d, keys_h, keys_i, e, row_d, row_h,
                                      row_i, ln, L)
+    if keys_d.device.type == "meta":
+        return _meta.call("wedge_intersect", keys_d, keys_h, keys_i, e, row_d,
+                          row_h, row_i, ln, L)
     if keys_d.device.type != "cuda":
         raise ValueError(f"wedge_intersect: unsupported device {keys_d.device}")
     global launches

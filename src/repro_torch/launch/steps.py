@@ -1,33 +1,57 @@
-"""GNN and recsys cells and LM model FLOPs: the GNN, recsys and LM parts
-of ``repro.launch.steps``.
+"""Per-(arch × shape) cell plans on one card: the function to trace or
+run, its arguments and its model FLOPs — the twin of
+``repro.launch.steps``.
 
-A cell is one (architecture × input shape) pair: the model config the
-cell builds (:func:`gnn_forward_builder`), its padded sizes
-(``GNN_CELL_DIMS``, :func:`edge_pad`, :func:`triplet_cap`), the model
-FLOPs of one forward (:func:`gnn_flops`; a train step is three times
-that) and the training loss (:func:`gnn_loss`: node cross-entropy over
-the valid nodes, or the graph-energy MSE). :func:`gnn_cell` puts them
-together for a port ``make_train_step``. :func:`recsys_cell` is a BST
-cell: its step (an AdamW train step, a forward, or retrieval scores),
-the shapes and dtypes of its batch, and its model FLOPs
-(:func:`recsys_flops`). The reference's cells also carry shardings and
-abstract inputs for a JAX mesh (``CellPlan``); on one card the port has
-no counterpart. Of the LM cells the port has the model FLOPs
-(:func:`lm_attn_flops`, :func:`lm_train_flops`,
-:func:`lm_prefill_flops`, :func:`lm_decode_flops`), for the card's model
-TFLOP/s, and a train cell's optimizer (:func:`pick_opt`); the TriPoll
-cells wait for the dry-run slice.
+:func:`build_cell` builds the reference's cell for one architecture and
+input shape as a :class:`CellPlan`: ``fn(*args)`` is the cell's step (a
+train step, a forward, a decode step, retrieval scores or a survey), and
+``args`` are its inputs. They are allocation-free by default: built on
+the meta device, every random draw skipped (``models.threefry`` and
+``truncated_normal`` draw nothing there), so the 1 T-parameter configs
+cost nothing; on a real device they are zeros and seeded draws are left
+to the caller. :func:`all_cells` lists the reference's 43 cells in its
+order. ``launch/dryrun.py`` traces each cell once under the op counter
+(:mod:`repro_torch.roofline.count`).
+
+The parts the cells are built from: the GNN cells (:func:`gnn_cell`:
+the model config, padded sizes ``GNN_CELL_DIMS`` / :func:`edge_pad` /
+:func:`triplet_cap`, the model FLOPs :func:`gnn_flops`, a train step
+being three times a forward's, and the loss :func:`gnn_loss`), the
+recsys cells (:func:`recsys_cell`: a BST step, its batch's shapes and
+dtypes, :func:`recsys_flops`), the LM model FLOPs
+(:func:`lm_attn_flops`, :func:`lm_train_flops`, :func:`lm_prefill_flops`,
+:func:`lm_decode_flops`) and a train cell's optimizer
+(:func:`pick_opt`). The TriPoll cells run the survey engine on a
+:func:`~repro_torch.core.dodgr.dodgr_spec` graph at a mesh of the one
+card: S = 1, as the reference computes its cell at a one-device mesh.
+The reference's cells also carry shardings for a JAX mesh; one card has
+none, so :class:`CellPlan` has no ``in_shardings``.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
+import numpy as np
 import torch
 
 from repro_torch import configs as config_registry
-from repro_torch.configs.base import GNNConfig, LMConfig, RecSysConfig
+from repro_torch.configs.base import (GNNConfig, LMConfig, RecSysConfig,
+                                      ShapeCell, TriPollConfig)
 from repro_torch.train.optimizer import Optimizer, adafactor, adamw
+
+
+@dataclass
+class CellPlan:
+    arch: str
+    shape: str
+    fn: object
+    args: tuple
+    donate: tuple = ()
+    model_flops: float = 0.0
+    note: str = ""
+    skip_reason: str | None = None
 
 # ---------------------------------------------------------------------------
 # LM cells: model FLOPs
@@ -192,11 +216,14 @@ class GNNCell:
     model_flops: float    # one train step: 3 × the forward's
 
 
-def gnn_cell(arch: str, shape: str, widths: str = "CONFIG") -> GNNCell:
+def gnn_cell(arch: str, shape: str, widths: str = "CONFIG",
+             cfg: GNNConfig | None = None) -> GNNCell:
     """The cell of GNN ``arch`` (a :func:`repro_torch.configs.get_arch`
     id) at ``shape`` (a key of ``GNN_CELL_DIMS``), at the widths of the
-    config module's ``CONFIG`` (or ``SMOKE``, for a rehearsal)."""
-    cfg: GNNConfig = getattr(config_registry.get_arch(arch), widths)
+    config module's ``CONFIG`` (or ``SMOKE``, for a rehearsal), or of
+    ``cfg``."""
+    if cfg is None:
+        cfg = getattr(config_registry.get_arch(arch), widths)
     dims = GNN_CELL_DIMS[shape]
     e_pad = edge_pad(dims)
     t_cap = triplet_cap(cfg.family, dims)
@@ -237,17 +264,19 @@ class RecSysCell:
     model_flops: float
 
 
-def recsys_cell(arch: str, shape: str, widths: str = "CONFIG") -> RecSysCell:
+def recsys_cell(arch: str, shape: str, widths: str = "CONFIG",
+                cfg: RecSysConfig | None = None) -> RecSysCell:
     """The cell of recsys ``arch`` at ``shape`` (the ``name`` of one of its
     ``SHAPES``), at the widths of the config module's ``CONFIG`` (or
-    ``SMOKE``): a train step of AdamW(1e-3) over ``loss_fn``, a forward, or
+    ``SMOKE``, or of ``cfg``): a train step of AdamW(1e-3) over ``loss_fn``, a forward, or
     one history's retrieval scores over ``n_candidates`` padded up to a
     multiple of 512, as the reference's ``_recsys_cell`` builds them."""
     from repro_torch.models.recsys import bst
     from repro_torch.train.trainer import make_train_step
 
     mod = config_registry.get_arch(arch)
-    cfg: RecSysConfig = getattr(mod, widths)
+    if cfg is None:
+        cfg = getattr(mod, widths)
     cell = next(c for c in mod.SHAPES if c.name == shape)
     B, S, F = cell.global_batch, cfg.seq_len, cfg.n_sparse_fields
     i32, b8 = torch.int32, torch.bool
@@ -270,3 +299,210 @@ def recsys_cell(arch: str, shape: str, widths: str = "CONFIG") -> RecSysCell:
     return RecSysCell(arch, shape, "retrieval", cfg, 1, inputs,
                       lambda p, b: bst.retrieval_scores(cfg, p, b), None,
                       2.0 * n_cand * cfg.embed_dim)
+
+
+# ---------------------------------------------------------------------------
+# cell plans
+
+
+def map_tensors(fn, tree):
+    """``tree`` (tensors in dicts, lists, tuples and dataclasses such as
+    ``TrainState``, ``GraphBatch`` and ``ShardedDODGr``) with ``fn``
+    applied to every tensor; other leaves stay as they are."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tensors(fn, v) for v in tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: map_tensors(fn, getattr(tree, f.name))
+            for f in dataclasses.fields(tree) if f.init})
+    return tree
+
+
+def tensor_leaves(tree) -> list:
+    """Every tensor of ``tree`` (see :func:`map_tensors`), in its order."""
+    out = []
+    map_tensors(out.append, tree)
+    return out
+
+
+def _no_grad(fn):
+    """``fn`` run without autograd: a serving cell's step."""
+    def run(*args):
+        with torch.no_grad():
+            return fn(*args)
+    return run
+
+
+def _zeros(shape, dtype, device):
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def _train_state(params, opt: Optimizer, device):
+    from repro_torch.train.trainer import TrainState
+
+    return TrainState(params=params, opt_state=opt.init(params),
+                      step=_zeros((), torch.int32, device), ef=None)
+
+
+def _lm_cell(arch, mod, shape: ShapeCell, device) -> CellPlan:
+    from repro_torch.models import threefry
+    from repro_torch.models import transformer as TF
+    from repro_torch.train.trainer import make_train_step
+
+    cfg: LMConfig = mod.CONFIG
+    B, S = shape.global_batch, shape.seq_len
+    params = TF.init_params(cfg, threefry.prng_key(0), device=device)
+    i32 = torch.int32
+    if shape.kind == "train":
+        opt = pick_opt(mod)
+        fn = make_train_step(lambda p, b: TF.loss_fn(cfg, p, b), opt)
+        return CellPlan(arch, shape.name, fn,
+                        (_train_state(params, opt, device),
+                         _zeros((B, S + 1), i32, device)),
+                        donate=(0,), model_flops=lm_train_flops(cfg, B, S),
+                        note=f"opt={getattr(mod, 'OPTIMIZER', 'adamw')}")
+    if shape.kind == "prefill":
+        fn = _no_grad(lambda p, t: TF.forward(cfg, p, t, return_cache=True))
+        return CellPlan(arch, shape.name, fn,
+                        (params, _zeros((B, S), i32, device)),
+                        model_flops=lm_prefill_flops(cfg, B, S))
+    # decode (decode_32k / long_500k): one token against an S-entry cache
+    fn = _no_grad(lambda p, c, t: TF.decode_step(cfg, p, c, t))
+    return CellPlan(arch, shape.name, fn,
+                    (params, TF.init_cache(cfg, B, S, device=device),
+                     _zeros((B, 1), i32, device)),
+                    donate=(1,), model_flops=lm_decode_flops(cfg, B, S),
+                    skip_reason=shape.skip_reason)
+
+
+def _gnn_cell(arch, mod, shape: ShapeCell, device) -> CellPlan:
+    from repro_torch.models import threefry
+    from repro_torch.models.gnn.common import GraphBatch
+    from repro_torch.train.trainer import make_train_step
+
+    cell = gnn_cell(arch, shape.name, cfg=mod.CONFIG)
+    dims, E, T = cell.dims, cell.e_pad, cell.t_cap
+    N = dims["N"]
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    with torch.device(device):        # the draws' and zeros' device
+        params = cell.module.init_params(threefry.prng_key(0), cell.cfg)
+    opt = adamw(1e-3)
+    graph = GraphBatch(
+        node_feat=(_zeros((N, dims["d_feat"]), f32, device)
+                   if dims["d_feat"] else None),
+        species=None if dims["d_feat"] else _zeros((N,), i32, device),
+        positions=_zeros((N, 3), f32, device),
+        edge_src=_zeros((E,), i32, device), edge_dst=_zeros((E,), i32, device),
+        edge_valid=_zeros((E,), b8, device), node_valid=_zeros((N,), b8, device),
+        graph_id=_zeros((N,), i32, device), n_graphs=dims["n_graphs"])
+    labels = (_zeros((N,), i32, device) if dims["task"] == "node"
+              else _zeros((dims["n_graphs"],), f32, device))
+    batch = dict(graph=graph, labels=labels)
+    if cell.family == "dimenet":
+        batch.update(t_in=_zeros((T,), i32, device),
+                     t_out=_zeros((T,), i32, device),
+                     t_valid=_zeros((T,), b8, device))
+    return CellPlan(arch, shape.name, make_train_step(cell.loss_fn, opt),
+                    (_train_state(params, opt, device), batch), donate=(0,),
+                    model_flops=cell.model_flops,
+                    note=f"{dims['task']} E={dims['E']} t_cap={T}")
+
+
+def _recsys_cell(arch, mod, shape: ShapeCell, device) -> CellPlan:
+    from repro_torch.models import threefry
+    from repro_torch.models.recsys import bst
+
+    cell = recsys_cell(arch, shape.name, cfg=mod.CONFIG)
+    params = bst.init_params(cell.cfg, threefry.prng_key(0), device=device)
+    batch = {k: _zeros(shp, dt, device) for k, (shp, dt) in cell.inputs.items()}
+    if cell.kind == "train":
+        return CellPlan(arch, shape.name, cell.fn,
+                        (_train_state(params, cell.opt, device), batch),
+                        donate=(0,), model_flops=cell.model_flops)
+    return CellPlan(arch, shape.name, _no_grad(cell.fn), (params, batch),
+                    model_flops=cell.model_flops)
+
+
+def _tripoll_cell(arch, mod, shape: ShapeCell, device) -> CellPlan:
+    """The survey of the reference's ``_tripoll_cell`` at a mesh of the
+    one card: S = 1, so one shard holds the whole graph (``n_loc =
+    n_global``, ``e_cap`` = 256 of CONFIG's shards) and the caps and
+    superstep counts are CONFIG's."""
+    from repro_torch.core.dodgr import dodgr_spec
+    from repro_torch.core.engine import EngineConfig, make_survey_fn
+    from repro_torch.core.surveys import (ClosureTime, SurveyBundle,
+                                          TopKWeightedTriangles,
+                                          TriangleCount)
+
+    cfg: TriPollConfig = mod.CONFIG
+    S = 1
+    n_loc = -(-cfg.n_global // S)
+    e_cap = cfg.e_cap * 256 // S
+    mode = shape.extras["mode"]
+    ecfg = EngineConfig(
+        mode=mode, push_cap=max(256, cfg.push_cap),
+        n_push_steps=cfg.n_push_steps, pull_q_cap=max(1, cfg.pull_q_cap),
+        pull_edge_cap=max(4, cfg.pull_edge_cap),
+        n_pull_steps=cfg.n_pull_steps if mode == "pushpull" else 0,
+        unroll_steps=cfg.unroll)
+    gr = dodgr_spec(S=S, n_global=cfg.n_global, n_loc=n_loc, e_cap=e_cap,
+                    d_plus_max=cfg.d_plus_max, dvi=cfg.dvi, dvf=cfg.dvf,
+                    dei=cfg.dei, def_=cfg.def_, device=device)
+    if shape.extras.get("bundle"):
+        survey = SurveyBundle([TriangleCount(), ClosureTime(),
+                               ClosureTime(n_buckets=32),
+                               TopKWeightedTriangles(k=128)])
+    else:
+        survey = ClosureTime()
+    # useful work: one keyed binary search per wedge (≈ log2(L) × 8 ops)
+    wedges = S * S * cfg.push_cap * (cfg.n_push_steps + cfg.n_pull_steps)
+    flops = wedges * np.log2(max(2, cfg.d_plus_max)) * 8.0
+    return CellPlan(arch, shape.name, make_survey_fn(survey, ecfg), (gr,),
+                    model_flops=flops,
+                    note=f"S={S} e_cap={e_cap} mode={mode}")
+
+
+class _ModProxy:
+    """Config-module proxy with an overridden CONFIG."""
+
+    def __init__(self, mod, cfg):
+        self._mod = mod
+        self.CONFIG = cfg
+
+    def __getattr__(self, name):
+        return getattr(self._mod, name)
+
+
+_CELLS = {"lm": _lm_cell, "gnn": _gnn_cell, "recsys": _recsys_cell,
+          "tripoll": _tripoll_cell}
+
+
+def build_cell(arch_id: str, shape_name: str, overrides: dict | None = None,
+               device="meta") -> CellPlan:
+    """The cell of ``arch_id`` at ``shape_name``, its arguments on
+    ``device`` (the meta device: nothing allocated). ``overrides``:
+    dataclass field replacements applied to CONFIG (a reduced depth, one
+    shard of a deployment)."""
+    mod = config_registry.get_arch(arch_id)
+    if overrides:
+        mod = _ModProxy(mod, replace(mod.CONFIG, **overrides))
+    shape = next(s for s in mod.SHAPES if s.name == shape_name)
+    if mod.KIND not in _CELLS:
+        raise KeyError(mod.KIND)
+    return _CELLS[mod.KIND](arch_id, mod, shape, torch.device(device))
+
+
+def all_cells(include_tripoll=True):
+    """Every (arch, shape) pair of the registry, in the reference's order."""
+    out = []
+    for arch in config_registry.list_archs():
+        mod = config_registry.get_arch(arch)
+        if mod.KIND == "tripoll" and not include_tripoll:
+            continue
+        for s in mod.SHAPES:
+            out.append((arch, s.name))
+    return out

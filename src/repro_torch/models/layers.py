@@ -31,8 +31,10 @@ NEG_INF = -1e30
 def truncated_normal(key, shape, scale, dtype=torch.float32,
                      device=None) -> torch.Tensor:
     """``scale`` × a standard normal truncated to (-2, 2), drawn on
-    ``device`` (``None``: the CPU) by
-    :func:`~repro_torch.models.threefry.torch_truncated_normal`.
+    ``device`` (``None``: torch's default device, the CPU unless a
+    ``torch.device`` context names another) by
+    :func:`~repro_torch.models.threefry.torch_truncated_normal`. On the
+    meta device nothing is drawn.
 
     ``key`` is a key of :mod:`repro_torch.models.threefry`: the draw is
     ``repro.models.layers.truncated_normal``'s with the matching
@@ -40,7 +42,7 @@ def truncated_normal(key, shape, scale, dtype=torch.float32,
     scale is rounded to float32 before it multiplies the draw."""
     shape = tuple(int(s) for s in shape)
     z = threefry.torch_truncated_normal(key, -2.0, 2.0, shape,
-                                        device or torch.device("cpu"))
+                                        device or torch.get_default_device())
     return (torch.tensor(np.float32(scale), device=z.device) * z).to(dtype)
 
 

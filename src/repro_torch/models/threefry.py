@@ -194,10 +194,13 @@ def _bits_chunk(key: np.ndarray, start: int, n: int, device):
 
 def _fill(shape, dtype, device, chunk_fn):
     """A tensor of ``shape`` filled ``_CHUNK`` flat elements at a time by
-    ``chunk_fn(start, n)``."""
+    ``chunk_fn(start, n)``. On the meta device nothing is drawn: the
+    tensor's shape and dtype are all there is."""
     import torch
 
     out = torch.empty(tuple(int(s) for s in shape), dtype=dtype, device=device)
+    if out.device.type == "meta":
+        return out
     flat = out.view(-1)
     for a in range(0, flat.numel(), _CHUNK):
         n = min(_CHUNK, flat.numel() - a)

@@ -1,15 +1,17 @@
-"""The card's published rates, and the mesh transport's collective bytes:
+"""The card's published rates, the roofline terms of one traced call
+(:func:`analyze_counted`), and the mesh transport's collective bytes:
 planned (:func:`mesh_collective_plan`) and reconciled with what the ranks
 counted (:func:`reconcile_collectives`).
 
-The JAX package reads its collective bytes from compiled HLO text
-(``repro.roofline.collective_bytes``, an HLO parser). The port has no
-compiled program to parse; its twin is the mesh's own counters: every
-operand handed to ``torch.distributed`` is counted, per lane, where it is
-handed over (``launch.mesh.ShardMesh.count``), and ``RankRun`` returns
-each rank's counters. So no HLO parser is ported, and the counters take
-its place. ``analyze_compiled`` and ``roofline/report.py`` serve the
-model zoo's dry runs and wait for the port of ``launch/dryrun.py``.
+The JAX package reads FLOPs, bytes and memory from a compiled program
+(``cost_analysis``, ``memory_analysis``) and its collective bytes from
+the compiled HLO text (``repro.roofline.collective_bytes``). The port has
+no compiled program: :func:`analyze_counted` takes the counts of every op
+a call executes (:class:`repro_torch.roofline.count.OpCounter`), and the
+mesh's collective bytes are its own counters: every operand handed to
+``torch.distributed`` is counted, per lane, where it is handed over
+(``launch.mesh.ShardMesh.count``), and ``RankRun`` returns each rank's
+counters. So no HLO parser is ported.
 """
 from __future__ import annotations
 
@@ -34,6 +36,55 @@ class HW:
     # rate; its float32 rate outside the tensor cores (67 T/s) is at least
     # the int32 one, so a bound from it stays a lower bound
     peak_int32_ops: float = 67e12
+
+
+def analyze_counted(counts: dict, model_flops_total: float,
+                    hw: HW = HW()) -> dict:
+    """Roofline terms of one call on one card, from its op counts
+    (``OpCounter.result()``), with the record keys of the JAX package's
+    ``analyze_compiled``.
+
+    The FLOPs and bytes are counted per executed op, not read from a
+    compiled program: each layer and each superstep counts on every trip,
+    so no loop correction applies. ``n_devices`` is 1 and no collective
+    runs (``collectives.wire_bytes`` 0); the peak is the counted peak of
+    live storage, arguments and outputs included, so ``temp_bytes`` is
+    what it holds above them and ``alias_bytes`` is 0; ``fits_hbm`` holds
+    when the peak is within the card's memory. The compute term takes
+    every FLOP at the bf16 tensor-core rate, as the reference takes its
+    chip's bf16 peak.
+    """
+    flops, nbytes = float(counts["flops"]), float(counts["bytes"])
+    peak = int(counts["peak_bytes"])
+    mem_info = dict(
+        argument_bytes=int(counts["argument_bytes"]),
+        output_bytes=int(counts["output_bytes"]),
+        temp_bytes=peak - int(counts["argument_bytes"])
+        - int(counts["output_bytes"]),
+        alias_bytes=0, code_bytes=0)
+    coll = dict(per_kind={}, counts={}, ops=[],
+                unknown=dict(bytes=0, count=0, mnemonics=[]), wire_bytes=0)
+    terms = dict(compute_s=flops / hw.peak_flops,
+                 memory_s=nbytes / hw.hbm_bw, collective_s=0.0)
+    dominant = max(terms, key=terms.get)
+    bound = max(terms.values())
+    return dict(
+        n_devices=1,
+        flops_per_device=flops,
+        bytes_per_device=nbytes,
+        collectives=coll,
+        memory=mem_info,
+        peak_device_bytes=peak,
+        fits_hbm=bool(peak <= hw.hbm_bytes),
+        terms=terms,
+        dominant=dominant,
+        bound_time_s=bound,
+        model_flops_total=model_flops_total,
+        hlo_flops_total=flops,
+        useful_flops_ratio=model_flops_total / flops if flops else 0.0,
+        roofline_fraction=(model_flops_total / hw.peak_flops / bound
+                           if bound > 0 else 0.0),
+    )
 
 
 def mesh_collective_plan(cfg, S: int | None = None) -> dict:

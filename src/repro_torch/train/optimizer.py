@@ -42,21 +42,23 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def _build(t, it):
+    if t is None:
+        return None
+    if isinstance(t, dict):
+        out = {k: _build(t[k], it) for k in sorted(t)}
+        return {k: out[k] for k in t}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_build(v, it) for v in t)
+    return next(it)
+
+
 def tree_unflatten(like, leaves):
-    """A tree of ``like``'s structure holding ``leaves`` in pytree order."""
-    it = iter(leaves)
-
-    def build(t):
-        if t is None:
-            return None
-        if isinstance(t, dict):
-            out = {k: build(t[k]) for k in sorted(t)}
-            return {k: out[k] for k in t}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(v) for v in t)
-        return next(it)
-
-    return build(like)
+    """A tree of ``like``'s structure holding ``leaves`` in pytree order.
+    (A module-level recursion: a nested recursive function would form a
+    reference cycle through its closure, and keep ``leaves`` alive until
+    Python's cyclic collector ran.)"""
+    return _build(like, iter(leaves))
 
 
 def tree_map(fn, tree, *rest):

@@ -286,7 +286,7 @@ def test_configs_equal_reference():
     assert list_archs() == ["internlm2-1.8b", "command-r-plus-104b",
                             "phi3-mini-3.8b", "llama4-maverick-400b-a17b",
                             "kimi-k2-1t-a32b", "nequip", "schnet", "dimenet",
-                            "equiformer-v2", "bst"]
+                            "equiformer-v2", "bst", "tripoll"]
     assert _published() == dict(n_interactions=3, d_hidden=64, n_rbf=300,
                                 cutoff=10.0)
     for which in ("CONFIG", "SMOKE"):
@@ -296,6 +296,8 @@ def test_configs_equal_reference():
     assert [dataclasses.asdict(c) for c in ref_get_arch("schnet").SHAPES] == \
         [dataclasses.asdict(c) for c in get_arch("schnet").SHAPES]
     assert get_arch("schnet").KIND == "gnn"
-    for arch in ("tripoll", "nope"):
+    for arch in ("no-such-arch", "nope"):
         with pytest.raises(KeyError, match=f"unknown arch '{arch}'"):
             get_arch(arch)
+        with pytest.raises(KeyError, match=f"unknown arch '{arch}'"):
+            ref_get_arch(arch)

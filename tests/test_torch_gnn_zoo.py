@@ -349,7 +349,7 @@ LM_REF_ONLY = {"attn_shard", "moe_group_chunks", "scan_unroll", "attn_bias"}
 def test_configs_equal_reference():
     lms = {"internlm2-1.8b", "command-r-plus-104b", "phi3-mini-3.8b",
            "llama4-maverick-400b-a17b", "kimi-k2-1t-a32b"}
-    assert set(ARCHS) | {"schnet", "bst"} | lms == set(list_archs())
+    assert set(ARCHS) | {"schnet", "bst", "tripoll"} | lms == set(list_archs())
     for arch in list_archs():
         a, b = ref_get_arch(arch), get_arch(arch)
         for name in ("CONFIG", "SMOKE"):
@@ -363,7 +363,9 @@ def test_configs_equal_reference():
             [dataclasses.asdict(c) for c in b.SHAPES]
         assert a.KIND == b.KIND
     with pytest.raises(KeyError, match="unknown arch"):
-        get_arch("tripoll")
+        get_arch("no-such-arch")
+    with pytest.raises(KeyError, match="unknown arch"):
+        ref_get_arch("no-such-arch")
 
 
 def test_gnn_cells_equal_reference():
