@@ -260,9 +260,9 @@ Phases (every failure ends the run with a non-zero exit):
       of the same weights and batch (``LM_BF16_RTOL``); bf16 gradients of
       one row of that batch against float32's (``TRAIN_GRAD_RTOL`` a
       leaf, relative L2); the example's ``--hundred-m`` config
-      (80,032,256 parameters) run to step 50 with a checkpoint, restored
-      and run to 60, equal bit for bit (losses and every leaf of the
-      ``TrainState``) to 60 steps straight. Each step's wall and loss,
+      (80,032,256 parameters) run to step 10 with a checkpoint, restored
+      and run to 20, equal bit for bit (losses and every leaf of the
+      ``TrainState``) to 20 steps straight. Each step's wall and loss,
       tokens/s, model TFLOP/s (``launch.steps.lm_train_flops``), peak
       memory above the resident, one profiled step (idle share). It
       launches no kernel of ours (checked).
@@ -303,6 +303,27 @@ Phases (every failure ends the run with a non-zero exit):
       cell's measured peak within ``DRYRUN_PEAK_RTOL`` of its prediction,
       the survey's at or below it; wedge_check, wedge_intersect and
       hist_add launch, under the allocator's expandable segments.
+   o. phi3-mini-3.8b served at its published widths (``path_lm(...,
+      name="lm_phi3")``, right after path k: 32 layers, d 3,072, MHA 32
+      heads of 96, d_ff 8,192, vocab 32,064, bf16; 3,821,079,552
+      parameters) with path k's traffic and checks but the arch-free
+      ones (the twin, the SMOKE LMs): main's bf16 decode steps 1 and 63
+      against a bf16 forward, the bf16 prefill against float32, float32
+      decode steps 1 and 16 against a forward; walls, tok/s, model
+      TFLOP/s, peak, a profiled prefill and decode step; under the
+      allocator's expandable segments. It launches no kernel of ours.
+   p. one kimi-k2 layer at its published widths (``path_moe``, after
+      path m: 384 experts of 2,048, top 8, d 7,168; 19,378,623,488
+      parameters, the depth cut to 1 of 61) served through
+      ``serve.prefill``, ``TF.decode_step`` and ``serve.greedy`` (8
+      prompts of 1,024 tokens, 16 tokens): the prefill's and a decode
+      step's routing equal to ``moe_route_host``'s numpy recomputation bit
+      for bit, drops counted, the MoE's output within ``LM_BF16_RTOL`` of
+      the per-expert float32 oracle ``moe_oracle``; decode steps 1 and 15
+      against a bf16 forward over the tokens so far; the prefill's peak
+      within ``DRYRUN_PEAK_RTOL`` of ``OpCounter``'s on meta; the draw's
+      wall and peak; under the allocator's expandable segments. It
+      launches no kernel of ours.
 
    Every run is exact and every kernel of a path launched on it. Every
    plan a path runs is audited by ``repro_torch.analysis.check_plan``
@@ -437,15 +458,18 @@ PATH_KERNELS = {
     "downstream": ("wedge_check", "wedge_intersect", "hist_add"),
     "zoo": (),
     "lm": (),
+    "lm_phi3": (),
     "train": (),
     "recsys": (),
+    "moe": (),
     "dryrun": ("wedge_check", "wedge_intersect", "hist_add"),
 }
 # the letters PERF.md gives the full-size paths
 PATH_LETTERS = {"first": "a", "bundle": "b", "split": "c", "hub": "d",
                 "delta": "e", "served": "f", "mesh": "g", "served_mesh": "h",
                 "downstream": "i", "zoo": "j", "lm": "k",
-                "train": "l", "recsys": "m", "dryrun": "n"}
+                "train": "l", "recsys": "m", "dryrun": "n", "lm_phi3": "o",
+                "moe": "p"}
 REPORTED_PATH = {"wedge_check": "first", "wedge_intersect": "first",
                  "fold_count_max": "first", "ring_set": "bundle",
                  "hist_add": "bundle", "hist_max": "bundle",
@@ -2202,6 +2226,15 @@ def phase_full(torch, report, scale, dev):
     log(f"path k: {full['lm']['wall_s']:.2f} s, no kernel of ours launched")
     t0 = time.perf_counter()
     with expandable_segments(torch, dev):
+        _, launches["lm_phi3"] = run_path(
+            torch, dev, "lm_phi3",
+            lambda: path_lm(torch, dev, full, name="lm_phi3"))
+    full["lm_phi3"]["wall_s"] = time.perf_counter() - t0
+    require(not any(launches["lm_phi3"].values()),
+            f"path o launched a kernel of the survey path: {launches['lm_phi3']}")
+    log(f"path o: {full['lm_phi3']['wall_s']:.2f} s, no kernel of ours launched")
+    t0 = time.perf_counter()
+    with expandable_segments(torch, dev):
         _, launches["train"] = run_path(torch, dev, "train",
                                         lambda: path_train(torch, dev, full))
     full["train"]["wall_s"] = time.perf_counter() - t0
@@ -2215,6 +2248,14 @@ def phase_full(torch, report, scale, dev):
     require(not any(launches["recsys"].values()),
             f"path m launched a kernel of the survey path: {launches['recsys']}")
     log(f"path m: {full['recsys']['wall_s']:.2f} s, no kernel of ours launched")
+    t0 = time.perf_counter()
+    with expandable_segments(torch, dev):
+        _, launches["moe"] = run_path(torch, dev, "moe",
+                                      lambda: path_moe(torch, dev, full))
+    full["moe"]["wall_s"] = time.perf_counter() - t0
+    require(not any(launches["moe"].values()),
+            f"path p launched a kernel of the survey path: {launches['moe']}")
+    log(f"path p: {full['moe']['wall_s']:.2f} s, no kernel of ours launched")
     # path n's meta traces are host work: they run beside the capture run,
     # whose wall no metric reads; path n itself runs after it
     traces = start_dryrun_traces() if dev.type == "cuda" else None
@@ -3393,9 +3434,12 @@ def path_zoo(torch, dev, full, widths="CONFIG"):
     return out
 
 
-LM_ARCH = "internlm2-1.8b"
-LM_BATCH, LM_PROMPT, LM_GEN = 8, 2000, 64   # path k's traffic
-LM_CHECK_STEPS = (1, 32, 63)  # decode steps held to a forward over the tokens
+# the LM serving paths: run name -> (letter, arch, the float32 decode
+# steps held to a forward over the tokens so far); path o holds two steps
+# where path k holds three, to save time (its float32 decode runs to 16)
+LM_PATHS = {"lm": ("k", "internlm2-1.8b", (1, 32, 63)),
+            "lm_phi3": ("o", "phi3-mini-3.8b", (1, 16))}
+LM_BATCH, LM_PROMPT, LM_GEN = 8, 2000, 64   # paths k's and o's traffic
 LM_TWIN_DRAW = 1 << 22     # the threefry twin's check: values drawn on the card
 LM_TWIN_ATOL = 1e-6        # its truncated normals vs numpy's
 # SMOKE widths in float32, card vs CPU: of the largest value
@@ -3407,9 +3451,8 @@ LM_CACHE_RTOL = 1e-4
 # bfloat16 vs float32 prefill, last position, of the largest |logit| (a CPU
 # rehearsal at 24 layers, d 512: 1.6e-2; at 8 layers, d 1,024: 1.0e-2)
 LM_BF16_RTOL = 5e-2
-# main's own bfloat16 decode steps held to a bfloat16 forward over the
-# tokens so far (its last position), of the largest |logit|
-LM_BF16_STEPS = (1, 63)
+# main's own bfloat16 decode steps 1 and gen - 1 held to a bfloat16
+# forward over the tokens so far (its last position), of the largest |logit|
 LM_BF16_DECODE_RTOL = 5e-2
 LM_ARCHS = ("internlm2-1.8b", "command-r-plus-104b", "phi3-mini-3.8b",
             "llama4-maverick-400b-a17b", "kimi-k2-1t-a32b")
@@ -3479,24 +3522,29 @@ def lm_step_check(torch, step, ref, rtol) -> dict:
                 ok=err <= rtol and bool(same[wide].all()))
 
 
-def path_lm(torch, dev, full, widths="CONFIG"):
-    """Path k: the LM serving path at internlm2-1.8b's published widths
-    (bf16, 24 layers, d 2,048, GQA 16/8 heads of 128, d_ff 8,192, vocab
-    92,544; weights from ``threefry.prng_key(0)`` drawn on the card),
-    through ``repro_torch.launch.serve.main``: batch ``LM_BATCH``, prompts
-    of ``LM_PROMPT`` tokens from ``lm_batch(0, 1, ...)`` (padded to 2,048
-    in the prefill's attention), ``LM_GEN`` greedy tokens. Checks: the
-    threefry twin; the five LMs at SMOKE widths, card == CPU; main's own
-    bf16 decode steps ``LM_BF16_STEPS`` against a bf16 forward over the
-    tokens main chose (``LM_BF16_DECODE_RTOL``), its tokens their logits'
-    argmax; in float32 (main's weights upcast), decode steps
-    ``LM_CHECK_STEPS`` against a forward over the tokens so far
-    (``LM_CACHE_RTOL``); in both, greedy tokens equal where
-    :func:`lm_step_check` says the difference cannot swap them; the bf16
-    prefill's last position against the float32 one (``LM_BF16_RTOL``).
-    Records: prefill and decode walls, tokens/s, model TFLOP/s
-    (``launch.steps``), peak memory, one profiled prefill and decode step.
-    ``widths="SMOKE"`` serves the SMOKE model for a CPU rehearsal."""
+def path_lm(torch, dev, full, widths="CONFIG", name="lm",
+            traffic=(LM_BATCH, LM_PROMPT, LM_GEN)):
+    """An LM serving path of ``LM_PATHS`` at its arch's published widths
+    (path k: internlm2-1.8b, bf16, 24 layers, d 2,048, GQA 16/8 heads of
+    128, d_ff 8,192, vocab 92,544; path o: phi3-mini-3.8b, 32 layers, d
+    3,072, MHA 32 heads of 96, d_ff 8,192, vocab 32,064; weights from
+    ``threefry.prng_key(0)`` drawn on the card), through
+    ``repro_torch.launch.serve.main``: ``traffic`` = (batch, prompt, gen),
+    by default ``LM_BATCH`` prompts of ``LM_PROMPT`` tokens from
+    ``lm_batch(0, 1, ...)`` (padded to 2,048 in the prefill's attention)
+    and ``LM_GEN`` greedy tokens. Checks, on path k only (they do not
+    depend on the arch): the threefry twin; the five LMs at SMOKE widths,
+    card == CPU. On each path: main's own bf16 decode steps 1 and gen - 1
+    against a bf16 forward over the tokens main chose
+    (``LM_BF16_DECODE_RTOL``), its tokens their logits' argmax; in float32
+    (main's weights upcast), the path's decode steps against a forward
+    over the tokens so far (``LM_CACHE_RTOL``); in both, greedy tokens
+    equal where :func:`lm_step_check` says the difference cannot swap
+    them; the bf16 prefill's last position against the float32 one
+    (``LM_BF16_RTOL``). Records: prefill and decode walls, tokens/s, model
+    TFLOP/s (``launch.steps``), peak memory, one profiled prefill and
+    decode step. ``widths="SMOKE"`` serves the SMOKE model for a CPU
+    rehearsal."""
     import contextlib
     import io
 
@@ -3506,21 +3554,25 @@ def path_lm(torch, dev, full, widths="CONFIG"):
     from repro_torch.models import transformer as TF
     from repro_torch.train.optimizer import tree_map
 
-    cfg = getattr(get_arch(LM_ARCH), widths)
-    B, P, G = LM_BATCH, LM_PROMPT, LM_GEN
-    out = full["lm"] = dict(arch=LM_ARCH, widths=widths, batch=B, prompt=P,
+    letter, arch, f32_steps = LM_PATHS[name]
+    cfg = getattr(get_arch(arch), widths)
+    B, P, G = traffic
+    tag = f"path {letter}"
+    out = full[name] = dict(arch=arch, widths=widths, batch=B, prompt=P,
                             gen=G, params=cfg.n_params)
-    t0 = time.perf_counter()
-    out["twin"] = lm_twin_check(torch, dev)
-    out["smoke"] = lm_smoke_check(torch, dev)
-    out["checks_s"] = time.perf_counter() - t0
-    log(f"path k: threefry twin == numpy ({LM_TWIN_DRAW} bits; normals within "
-        f"{out['twin']['normal_max_abs_err']:.2e}); SMOKE card vs CPU "
-        + ", ".join(f"{a} {max(e.values()):.2e}" for a, e in out["smoke"].items())
-        + f" (rtol {LM_SMOKE_RTOL}); {out['checks_s']:.2f} s")
+    if name == "lm":
+        t0 = time.perf_counter()
+        out["twin"] = lm_twin_check(torch, dev)
+        out["smoke"] = lm_smoke_check(torch, dev)
+        out["checks_s"] = time.perf_counter() - t0
+        log(f"{tag}: threefry twin == numpy ({LM_TWIN_DRAW} bits; normals "
+            f"within {out['twin']['normal_max_abs_err']:.2e}); SMOKE card vs "
+            "CPU " + ", ".join(f"{a} {max(e.values()):.2e}"
+                               for a, e in out["smoke"].items())
+            + f" (rtol {LM_SMOKE_RTOL}); {out['checks_s']:.2f} s")
 
     # the traffic, through the entry point
-    argv = ["--arch", LM_ARCH, "--batch", str(B), "--prompt-len", str(P),
+    argv = ["--arch", arch, "--batch", str(B), "--prompt-len", str(P),
             "--gen", str(G), "--seed", "0", "--device", str(dev)]
     argv += ["--smoke"] if widths == "SMOKE" else []
     base = memory_reset(torch, dev)
@@ -3532,12 +3584,12 @@ def path_lm(torch, dev, full, widths="CONFIG"):
     out["peak_bytes"] = peak_memory(torch, dev) - base
     lines = buf.getvalue().splitlines()
     for line in lines:
-        log(f"path k serve: {line}")
+        log(f"{tag} serve: {line}")
     pre = re.match(r"prefill: \d+×\d+ in ([\d.]+) ms", lines[0])
     dec = re.match(r"decode: \d+ steps × batch \d+ in ([\d.]+) ms", lines[1])
     require(pre and dec and seqs.shape == (B, G)
             and lines[2].startswith("sample continuation ids: "),
-            f"path k: serve printed {lines}, returned {seqs.shape}")
+            f"{tag}: serve printed {lines}, returned {seqs.shape}")
     out["prefill_s"] = float(pre.group(1)) / 1e3
     out["decode_s"] = float(dec.group(1)) / 1e3
     out["prefill_tok_s"] = B * P / out["prefill_s"]
@@ -3551,24 +3603,24 @@ def path_lm(torch, dev, full, widths="CONFIG"):
     # main's own weights and logits from here on
     p16, prompts, kept = keep.pop("params"), keep["prompts"], keep.pop("logits")
     require(keep["cfg"] == cfg and len(kept) == G,
-            f"path k: main kept {keep['cfg'].name}, {len(kept)} logits")
+            f"{tag}: main kept {keep['cfg'].name}, {len(kept)} logits")
     seqs_t = torch.as_tensor(seqs, device=dev)
     with torch.inference_mode():
         require(all(bool(torch.isfinite(t).all()) for t in kept),
-                "path k: main's bf16 logits not finite")
+                f"{tag}: main's bf16 logits not finite")
         # main's bf16 decode steps against a bf16 forward over the tokens
         # main chose so far
         t0 = time.perf_counter()
         checks = out["bf16_decode_checks"] = {}
-        for i in LM_BF16_STEPS:
+        for i in (1, G - 1):
             lf, _ = TF.forward(cfg, p16, torch.cat([prompts, seqs_t[:, :i]], 1))
             ref = lf[:, -1].float()
             del lf
             require(torch.equal(kept[i][:, 0].argmax(-1), seqs_t[:, i]),
-                    f"path k: main's token at step {i} is not its logits' argmax")
+                    f"{tag}: main's token at step {i} is not its logits' argmax")
             checks[i] = lm_step_check(torch, kept[i][:, 0].float(), ref,
                                       LM_BF16_DECODE_RTOL)
-            require(checks[i]["ok"], f"path k: bf16 decode step {i} vs a bf16 "
+            require(checks[i]["ok"], f"{tag}: bf16 decode step {i} vs a bf16 "
                     f"forward {checks[i]}")
         out["bf16_checks_s"] = time.perf_counter() - t0
         del kept
@@ -3584,19 +3636,19 @@ def path_lm(torch, dev, full, widths="CONFIG"):
             res["step"] = TF.decode_step(cfg, p16, res["cache"], seqs_t[:, :1])[0]
 
         if dev.type == "cuda":
-            out["profile_prefill"] = profile_run(torch, "path k prefill",
+            out["profile_prefill"] = profile_run(torch, f"{tag} prefill",
                                                  prefill16, top=8)
-            out["profile_decode"] = profile_run(torch, "path k decode step",
+            out["profile_decode"] = profile_run(torch, f"{tag} decode step",
                                                 step16, top=8)
         else:
             prefill16()
             step16()
         last16 = res["logits"][:, -1].float()
         require(torch.equal(serve.greedy(last16), seqs_t[:, 0]),
-                "path k: the prefill's first tokens differ from main's")
+                f"{tag}: the prefill's first tokens differ from main's")
         require(bool(torch.isfinite(res["logits"]).all())
                 and bool(torch.isfinite(res["step"]).all()),
-                "path k: bf16 logits not finite")
+                f"{tag}: bf16 logits not finite")
         del res
         # float32: the same weights upcast
         cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
@@ -3609,12 +3661,12 @@ def path_lm(torch, dev, full, widths="CONFIG"):
         out["bf16_rel_err"] = float((last16 - last32).abs().max()
                                     / last32.abs().max())
         require(out["bf16_rel_err"] <= LM_BF16_RTOL,
-                f"path k: bf16 vs float32 prefill {out['bf16_rel_err']} > "
+                f"{tag}: bf16 vs float32 prefill {out['bf16_rel_err']} > "
                 f"{LM_BF16_RTOL}")
         toks, steps = [serve.greedy(last32[:, None])], {}
-        for i in range(1, G):
+        for i in range(1, max(f32_steps, default=0) + 1):
             lg, cache = TF.decode_step(cfg32, p32, cache, toks[-1])
-            if i in LM_CHECK_STEPS:
+            if i in f32_steps:
                 steps[i] = lg[:, 0].clone()
             toks.append(serve.greedy(lg))
         del cache
@@ -3625,13 +3677,13 @@ def path_lm(torch, dev, full, widths="CONFIG"):
             del lf
             checks[i] = lm_step_check(torch, step, ref, LM_CACHE_RTOL)
             require(checks[i]["ok"],
-                    f"path k: float32 decode step {i} vs forward {checks[i]}")
+                    f"{tag}: float32 decode step {i} vs forward {checks[i]}")
             if checks[i]["narrow_rows"]:
-                log(f"path k: float32 step {i}: {checks[i]['narrow_rows']} rows "
+                log(f"{tag}: float32 step {i}: {checks[i]['narrow_rows']} rows "
                     "with the top two logits too close to hold their token")
         out["float32_s"] = time.perf_counter() - t0
         del p32
-    log(f"path k: {LM_ARCH} {widths} ({cfg.n_params} parameters), batch {B}, "
+    log(f"{tag}: {arch} {widths} ({cfg.n_params} parameters), batch {B}, "
         f"prompt {P}, {G} tokens: prefill {out['prefill_s']:.4f} s "
         f"({out['prefill_tok_s']:.0f} tok/s, {out['prefill_tflops']:.2f} model "
         f"TFLOP/s), decode {out['decode_s']:.4f} s ({out['decode_tok_s']:.0f} "
@@ -3646,6 +3698,386 @@ def path_lm(torch, dev, full, widths="CONFIG"):
             f"step {i} {c['rel_err']:.2e} (gap {c['min_gap']:.2e})"
             for i, c in checks.items())
         + f" (rtol {LM_CACHE_RTOL}); float32 checks {out['float32_s']:.2f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# path p: one kimi-k2 MoE layer at its published widths
+
+MOE_ARCH = "kimi-k2-1t-a32b"
+MOE_LAYERS = 1             # of kimi-k2's 61: the depth cut
+# batch × prompt a multiple of the group size (256): the prefill's 8,192
+# tokens are 32 groups, in 16 chunks of 2
+MOE_BATCH, MOE_PROMPT, MOE_GEN = 8, 1024, 16
+MOE_DECODE_CHECKS = (1, 15)   # decode steps held to a bf16 forward
+MOE_ROUTE_STEP = 1         # the decode step whose routing and MoE are held
+MOE_DRAW_PEAK = 40e9       # the weights' draw, bytes above what was resident
+
+
+class MoECapture:
+    """Wraps ``models.moe.route`` and ``models.moe.moe_layer`` until
+    :meth:`restore`: each ``moe_layer`` call's input, weights, output and
+    routing, a dict a call in ``calls``. It pins them, so it wraps no run
+    whose peak memory is read."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.route, self.layer = moe, moe.route, moe.moe_layer
+        self.calls, self._routing = [], None
+        moe.route, moe.moe_layer = self._route, self._layer
+
+    def _route(self, *args):
+        self._routing = self.route(*args)
+        return self._routing
+
+    def _layer(self, x, p, spec):
+        y, aux = self.layer(x, p, spec)
+        self.calls.append(dict(x=x, p=p, y=y, routing=self._routing))
+        return y, aux
+
+    def restore(self):
+        self.moe.route, self.moe.moe_layer = self.route, self.layer
+
+
+def moe_route_host(probs: np.ndarray, top_k: int, C: int) -> dict:
+    """The MoE's routing recomputed in numpy from the router's float32
+    probabilities [G, gs, E]: the ``top_k`` largest (ties toward the lower
+    expert: a stable sort), their probabilities renormalised over the
+    ``top_k``, each assignment's place in its expert's queue within its
+    group (token-major, then k: a stable sort by expert, each run counted
+    from its start) and ``keep``, the place below ``C``."""
+    G, gs, _ = probs.shape
+    eidx = np.argsort(-probs, axis=-1, kind="stable")[..., :top_k]
+    top = np.take_along_axis(probs, eidx, -1)
+    gate = top / np.maximum(top.sum(-1, keepdims=True), np.float32(1e-9))
+    flat = eidx.reshape(G, gs * top_k)
+    order = np.argsort(flat, axis=1, kind="stable")
+    srt = np.take_along_axis(flat, order, 1)
+    idx = np.broadcast_to(np.arange(gs * top_k), srt.shape)
+    first = np.ones(srt.shape, bool)
+    first[:, 1:] = srt[:, 1:] != srt[:, :-1]
+    start = np.maximum.accumulate(np.where(first, idx, 0), axis=1)
+    pos = np.empty_like(flat)
+    np.put_along_axis(pos, order, idx - start, 1)
+    pos = pos.reshape(G, gs, top_k)
+    return dict(eidx=eidx, gate=gate, pos=pos, keep=pos < C)
+
+
+def moe_oracle(torch, x, p, host: dict):
+    """The MoE's output [T, D] in float32, expert by expert: each
+    expert's kept (token, gate) pairs (``host``, from
+    :func:`moe_route_host`), its SwiGLU in float32 on those tokens' rows
+    of ``x`` with its weights upcast one expert at a time, gate × output
+    added into each token's row."""
+    import torch.nn.functional as F
+
+    T, D = x.shape
+    k = host["eidx"].shape[-1]
+    keep = host["keep"].reshape(-1)
+    e = host["eidx"].reshape(-1)[keep]
+    order = np.argsort(e, kind="stable")
+    e = e[order]
+    tok = torch.as_tensor(np.repeat(np.arange(T), k)[keep][order], device=x.device)
+    gate = torch.as_tensor(host["gate"].reshape(-1)[keep][order], device=x.device)
+    bounds = np.searchsorted(e, np.arange(p["wg"].shape[0] + 1))
+    x32 = x.float()
+    y = torch.zeros((T, D), dtype=torch.float32, device=x.device)
+    for ex, (a, b) in enumerate(zip(bounds[:-1], bounds[1:])):
+        if a == b:
+            continue
+        rows = tok[a:b]
+        xs = x32[rows]
+        h = F.silu(xs @ p["wg"][ex].float()) * (xs @ p["wu"][ex].float())
+        y.index_add_(0, rows, gate[a:b, None] * (h @ p["wd"][ex].float()))
+    return y
+
+
+def moe_call_check(torch, call, spec) -> dict:
+    """One captured ``moe_layer`` call held to the host: its experts,
+    places and ``keep`` equal :func:`moe_route_host`'s on its own
+    probabilities, bit for bit; its output within ``LM_BF16_RTOL`` of
+    :func:`moe_oracle` (the largest difference, of the largest |y|)."""
+    from repro_torch.models.moe import _capacity
+
+    r = call["routing"]
+    G, gs, _ = r.probs.shape
+    C = _capacity(gs, spec)
+    host = moe_route_host(r.probs.cpu().numpy(), spec.top_k, C)
+    equal = {k: bool(np.array_equal(host[k], getattr(r, k).cpu().numpy()))
+             for k in ("eidx", "pos", "keep")}
+    y_ref = moe_oracle(torch, call["x"], call["p"], host)
+    err = float((call["y"].float() - y_ref).abs().max() / y_ref.abs().max())
+    return dict(tokens=G * gs, groups=G, capacity=C,
+                assignments=int(host["keep"].size),
+                dropped=int((~host["keep"]).sum()), equal=equal,
+                gate_max_abs_err=float(np.abs(host["gate"] - r.gate.cpu()
+                                              .numpy()).max()),
+                oracle_rel_err=err, rtol=LM_BF16_RTOL,
+                ok=all(equal.values()) and err <= LM_BF16_RTOL)
+
+
+def moe_forward_last(torch, cfg, params, tokens):
+    """The logits [B, V] at the last position of a forward over
+    ``tokens`` [B, S], in float32. A MoE groups B × S tokens, so each row
+    is padded at its end to a length whose B × S' the group size divides
+    (causal attention: no real position sees a pad), and the MoE drops
+    nothing: a capacity past the group size (an expert takes a token at
+    most once) and one group a chunk. Capacity drops depend on which
+    tokens share a group, which a decode step's and a forward's do not."""
+    import math
+
+    import torch.nn.functional as F
+
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.moe import _capacity
+
+    B, S = tokens.shape
+    spec = cfg.moe
+    step = spec.group_size // math.gcd(B, spec.group_size)
+    Sp = -(-S // step) * step
+    gs = min(spec.group_size, B * Sp)
+    nodrop = dataclasses.replace(
+        spec, capacity_factor=spec.n_experts / spec.top_k * (1 + 1e-6),
+        group_chunks=B * Sp // gs)
+    require(_capacity(gs, nodrop) >= gs, "path p: a capacity below the group")
+    logits, _ = TF.forward(dataclasses.replace(cfg, moe=nodrop), params,
+                           F.pad(tokens, (0, Sp - S)))
+    return logits[:, S - 1].float()
+
+
+def moe_prefill_trace(widths, traffic) -> dict:
+    """Path p's prefill traced on the meta device under ``OpCounter``
+    (``launch.dryrun.trace_cell``): its counts, and the trace's seconds."""
+    import types
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.models import threefry
+    from repro_torch.models import transformer as TF
+
+    cfg = dataclasses.replace(getattr(get_arch(MOE_ARCH), widths),
+                              n_layers=MOE_LAYERS)
+    B, P, G = traffic
+    meta = torch.device("meta")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        counts = trace_cell(types.SimpleNamespace(
+            fn=lambda p, t: serve.prefill(cfg, p, t, P + G),
+            args=(TF.init_params(cfg, threefry.prng_key(0), meta),
+                  torch.zeros((B, P), dtype=torch.int32, device=meta))))
+    return dict(counts, trace_s=time.perf_counter() - t0)
+
+
+def path_moe(torch, dev, full, widths="CONFIG",
+             traffic=(MOE_BATCH, MOE_PROMPT, MOE_GEN)):
+    """Path p: one kimi-k2 layer at its published widths
+    (``dataclasses.replace(CONFIG, n_layers=MOE_LAYERS)``: d 7,168, 64
+    query and 8 KV heads of 112, 384 experts of 2,048, top 8, groups of
+    256 in 16 chunks, vocab 163,840, bf16; 19,378,623,488 parameters drawn
+    on the card by ``TF.init_params(cfg, threefry.prng_key(0), dev)``)
+    served through ``serve.prefill``, ``TF.decode_step`` and
+    ``serve.greedy`` (``serve.main`` takes no depth): ``traffic`` =
+    (batch, prompt, gen), by default 8 prompts of 1,024 tokens from
+    ``lm_batch(0, 1, ...)`` and 16 greedy tokens. Checks (each fails the
+    run): the routing of the prefill's MoE call and of decode step
+    ``MOE_ROUTE_STEP``'s equal :func:`moe_route_host` bit for bit, and
+    their outputs within ``LM_BF16_RTOL`` of :func:`moe_oracle`
+    (:func:`moe_call_check`); decode steps ``MOE_DECODE_CHECKS`` (each
+    with no assignment dropped) against a bf16 forward over the tokens so
+    far (:func:`moe_forward_last`, ``LM_BF16_DECODE_RTOL``); every logit
+    finite; on the card, the prefill's measured peak within
+    ``DRYRUN_PEAK_RTOL`` of ``OpCounter``'s on the same call traced on
+    meta, and the weights' draw at most ``MOE_DRAW_PEAK`` above what was
+    resident. Records: the draw's wall and peak, prefill and decode walls,
+    tokens/s, model TFLOP/s, the peak above the resident, dropped
+    assignments, one profiled prefill and decode step.
+    ``widths="SMOKE"`` serves the SMOKE model for a CPU rehearsal. On the
+    card the meta trace (:func:`moe_prefill_trace`, host work) runs in a
+    spawned process beside the draw."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import lm_batch
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import (lm_decode_flops, lm_prefill_flops,
+                                          tensor_leaves)
+    from repro_torch.models import threefry
+    from repro_torch.models import transformer as TF
+
+    cfg = dataclasses.replace(getattr(get_arch(MOE_ARCH), widths),
+                              n_layers=MOE_LAYERS)
+    spec = cfg.moe
+    B, P, G = traffic
+    require(B * P % spec.group_size == 0,
+            f"path p: {B} × {P} tokens are not whole groups of {spec.group_size}")
+    out = full["moe"] = dict(arch=MOE_ARCH, widths=widths, layers=MOE_LAYERS,
+                             batch=B, prompt=P, gen=G, params=cfg.n_params)
+
+    # the dry run's yardstick: the same prefill traced on the meta device
+    if dev.type == "cuda":
+        pool = ProcessPoolExecutor(1, mp_context=multiprocessing
+                                   .get_context("spawn"))
+        trace = pool.submit(moe_prefill_trace, widths, traffic)
+    else:
+        pool, trace = None, moe_prefill_trace(widths, traffic)
+
+    sync(torch, dev)
+    base = memory_reset(torch, dev)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        params = TF.init_params(cfg, threefry.prng_key(0), dev)
+        sync(torch, dev)
+        out["draw_s"] = time.perf_counter() - t0
+        out["draw_peak_bytes"] = peak_memory(torch, dev) - base
+        out["weights_bytes"] = sum(t.untyped_storage().nbytes()
+                                   for t in tensor_leaves(params))
+        prompts = lm_batch(0, 1, B, P, cfg.vocab, dev)
+        if pool is not None:
+            t0 = time.perf_counter()
+            try:
+                trace = trace.result()
+            finally:
+                pool.shutdown()
+            out["trace_wait_s"] = time.perf_counter() - t0
+        out["predicted_peak_bytes"] = trace["peak_bytes"]
+        out["trace_s"] = trace["trace_s"]
+
+        cap = MoECapture()
+        try:
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            logits, cache = serve.prefill(cfg, params, prompts, P + G)
+            toks = [serve.greedy(logits[:, -1:])]
+            sync(torch, dev)
+            out["prefill_s"] = time.perf_counter() - t0
+            finite = torch.isfinite(logits).all()
+            del logits
+            pre = cap.calls
+            cap.calls = []
+            kept = {}
+            t0 = time.perf_counter()
+            for i in range(1, G):
+                lg, cache = TF.decode_step(cfg, params, cache, toks[-1])
+                toks.append(serve.greedy(lg))
+                finite &= torch.isfinite(lg).all()
+                if i in MOE_DECODE_CHECKS:
+                    kept[i] = lg[:, 0].float()
+            sync(torch, dev)
+            out["decode_s"] = time.perf_counter() - t0
+        finally:
+            cap.restore()
+        require(bool(finite), "path p: a logit is not finite")
+        require(len(pre) == MOE_LAYERS and len(cap.calls) == (G - 1) * MOE_LAYERS,
+                f"path p: {len(pre)} MoE calls in the prefill, "
+                f"{len(cap.calls)} in the decode")
+        del cache
+
+        # the routing bit for bit, the MoE against the per-expert oracle
+        t0 = time.perf_counter()
+        rc = out["moe_checks"] = {}
+        for label, call in (("prefill", pre[0]),
+                            (f"decode step {MOE_ROUTE_STEP}",
+                             cap.calls[MOE_ROUTE_STEP - 1])):
+            rc[label] = moe_call_check(torch, call, spec)
+            require(rc[label]["ok"], f"path p {label}: {rc[label]}")
+        out["decode_dropped"] = [int((~c["routing"].keep).sum())
+                                 for c in cap.calls]
+        out["moe_checks_s"] = time.perf_counter() - t0
+        del pre, cap
+
+        # decode steps against a bf16 forward over the tokens so far
+        t0 = time.perf_counter()
+        seq = torch.cat(toks, 1)
+        dc = out["decode_checks"] = {}
+        for i in MOE_DECODE_CHECKS:
+            require(out["decode_dropped"][i - 1] == 0,
+                    f"path p: decode step {i} dropped "
+                    f"{out['decode_dropped'][i - 1]} assignments")
+            ref = moe_forward_last(torch, cfg, params,
+                                   torch.cat([prompts, seq[:, :i]], 1))
+            dc[i] = lm_step_check(torch, kept[i], ref, LM_BF16_DECODE_RTOL)
+            require(dc[i]["ok"], f"path p: decode step {i} vs a bf16 forward "
+                    f"{dc[i]}")
+        out["decode_checks_s"] = time.perf_counter() - t0
+        del kept, ref
+
+        # the prefill's peak, its outputs kept, against the prediction; a
+        # prefill and a decode step profiled
+        gc.collect()
+        sync(torch, dev)
+        in_bytes = out["weights_bytes"] + prompts.untyped_storage().nbytes()
+        resident = memory_reset(torch, dev)
+        extra = resident - base - in_bytes
+        res = {}
+
+        def prefill():
+            res["logits"], res["cache"] = serve.prefill(cfg, params, prompts,
+                                                        P + G)
+
+        def step():
+            res["step"] = TF.decode_step(cfg, params, res["cache"], toks[0])[0]
+
+        t0 = time.perf_counter()
+        prefill()
+        sync(torch, dev)
+        out["prefill_warm_s"] = time.perf_counter() - t0
+        if dev.type == "cuda":
+            peak = peak_memory(torch, dev)
+            out["measured_peak_bytes"] = peak - base - extra
+            out["peak_above_resident_bytes"] = peak - resident
+            out["peak_ratio"] = (out["measured_peak_bytes"]
+                                 / out["predicted_peak_bytes"])
+            del res["logits"], res["cache"]
+            out["profile_prefill"] = profile_run(torch, "path p prefill",
+                                                 prefill, top=8)
+            out["profile_decode"] = profile_run(torch, "path p decode step",
+                                                step, top=8)
+        else:
+            step()
+        del res, params
+    out["prefill_tok_s"] = B * P / out["prefill_s"]
+    out["decode_tok_s"] = B * (G - 1) / out["decode_s"]
+    out["prefill_flops"] = lm_prefill_flops(cfg, B, P)
+    out["prefill_tflops"] = out["prefill_flops"] / out["prefill_s"] / 1e12
+    out["prefill_warm_tflops"] = out["prefill_flops"] / out["prefill_warm_s"] / 1e12
+    out["decode_tflops"] = ((G - 1) * lm_decode_flops(cfg, B, P + G)
+                            / out["decode_s"] / 1e12)
+    mc = out["moe_checks"]
+    log(f"path p: {MOE_ARCH} {widths} at {MOE_LAYERS} layer ({cfg.n_params} "
+        f"parameters, {out['weights_bytes']} B): drawn in {out['draw_s']:.2f} s, "
+        f"draw peak {out['draw_peak_bytes'] / 1e9:.3f} GB; batch {B}, prompt "
+        f"{P}, {G} tokens: prefill {out['prefill_s']:.4f} s "
+        f"({out['prefill_tok_s']:.0f} tok/s, {out['prefill_tflops']:.2f} model "
+        f"TFLOP/s; warm {out['prefill_warm_s']:.4f} s, "
+        f"{out['prefill_warm_tflops']:.2f} TFLOP/s), decode "
+        f"{out['decode_s']:.4f} s ({out['decode_tok_s']:.1f} "
+        f"tok/s, {out['decode_tflops']:.3f} TFLOP/s); routing == host "
+        + ", ".join(f"{k}: {c['dropped']} of {c['assignments']} dropped "
+                    f"(C {c['capacity']}), vs oracle {c['oracle_rel_err']:.3e}"
+                    for k, c in mc.items())
+        + f" (rtol {LM_BF16_RTOL}; {out['moe_checks_s']:.2f} s); decode drops "
+        f"{out['decode_dropped']}; decode vs bf16 forward " + ", ".join(
+            f"step {i} {c['rel_err']:.3e} (gap {c['min_gap']:.2e}, "
+            f"{c['narrow_rows']} narrow)" for i, c in dc.items())
+        + f" (rtol {LM_BF16_DECODE_RTOL}; {out['decode_checks_s']:.2f} s); "
+        f"predicted prefill peak {out['predicted_peak_bytes']} B (traced in "
+        f"{out['trace_s']:.2f} s)")
+    if dev.type == "cuda":
+        log(f"path p: prefill peak measured {out['measured_peak_bytes']} B "
+            f"({out['peak_ratio']:.6f} of predicted), "
+            f"{out['peak_above_resident_bytes'] / 2**30:.2f} GiB above the "
+            f"resident (warm-up left {extra} B besides the weights and prompts)")
+        require(out["draw_peak_bytes"] <= MOE_DRAW_PEAK,
+                f"path p: the draw peaked {out['draw_peak_bytes']} B above "
+                "what was resident")
+        require(abs(out["peak_ratio"] - 1) <= DRYRUN_PEAK_RTOL,
+                f"path p: the prefill's peak {out['peak_ratio']:.4f} of the "
+                "prediction")
     return out
 
 
@@ -3665,9 +4097,9 @@ TRAIN_SMOKE_RTOL = 1e-5
 # weights, each leaf's relative L2 error (a CPU rehearsal at 6 layers, d
 # 512, 1,024 positions: 0.53e-2 to 1.40e-2)
 TRAIN_GRAD_RTOL = 5e-2
-# the restart: run A steps 0-49 with a checkpoint at 50, run B restores it
-# and runs to 60, run C 60 steps straight (the example's --hundred-m config)
-RESTART_AT, RESTART_END = 50, 60
+# the restart: run A steps 0-9 with a checkpoint at 10, run B restores it
+# and runs to 20, run C 20 steps straight (the example's --hundred-m config)
+RESTART_AT, RESTART_END = 10, 20
 
 
 @contextlib.contextmanager

@@ -39,11 +39,14 @@ def truncated_normal(key, shape, scale, dtype=torch.float32,
     ``key`` is a key of :mod:`repro_torch.models.threefry`: the draw is
     ``repro.models.layers.truncated_normal``'s with the matching
     ``jax.random`` key, within float32 rounding. As in the reference, the
-    scale is rounded to float32 before it multiplies the draw."""
+    scale is rounded to float32 before it multiplies the draw. The draw,
+    the product and the cast to ``dtype`` are taken ``threefry._CHUNK``
+    elements at a time, straight into the leaf: its peak is the leaf and
+    one chunk's temporaries."""
     shape = tuple(int(s) for s in shape)
-    z = threefry.torch_truncated_normal(key, -2.0, 2.0, shape,
-                                        device or torch.get_default_device())
-    return (torch.tensor(np.float32(scale), device=z.device) * z).to(dtype)
+    return threefry.torch_truncated_normal(
+        key, -2.0, 2.0, shape, device or torch.get_default_device(),
+        scale=scale, dtype=dtype)
 
 
 def rms_norm(x, w, eps):

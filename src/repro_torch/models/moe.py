@@ -8,10 +8,15 @@ expert's queue is the running count of that expert's assignments in its
 group, and assignments past the capacity ``C`` are dropped. The
 reference's expert parallelism (experts over a mesh axis) has no
 counterpart on one card; ``group_chunks`` splits the groups into chunks
-computed one after another, as the reference's ``lax.map`` does. A
-sort-based dispatch is a later perf lever.
+computed one after another, as the reference's ``lax.map`` does.
+:func:`route` makes the router's decisions (:class:`Routing`) and
+:func:`moe_layer` calls it through the module, so a caller may wrap it to
+read them. A sort-based dispatch is a later perf lever: the dense one
+reads every expert's weights on every call, a decode step's too.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -77,18 +82,25 @@ def _experts(p, xg, oh, pos, keep, gate, C: int):
     return y.to(dt)
 
 
-def moe_layer(x, p, spec: MoESpec):
-    """x [T, D] → (y [T, D], aux losses dict). T % group_size == 0."""
-    T, D = x.shape
-    gs = min(spec.group_size, T)
-    G = T // gs
-    E, k = spec.n_experts, spec.top_k
-    C = _capacity(gs, spec)
-    xg = x.reshape(G, gs, D)
+class Routing(NamedTuple):
+    """The router's decisions for groups of tokens [G, gs, ...]."""
 
+    logits: torch.Tensor      # [G, gs, E] float32
+    probs: torch.Tensor       # [G, gs, E] float32, their softmax
+    gate: torch.Tensor        # [G, gs, k] float32, renormalised over k
+    eidx: torch.Tensor        # [G, gs, k] int64, the chosen experts
+    oh: torch.Tensor          # [G, gs, k, E] int32, their one-hots
+    pos: torch.Tensor         # [G, gs, k] int32, places in the queues
+    keep: torch.Tensor        # [G, gs, k] bool, within the capacity
+
+
+def route(xg, router, spec: MoESpec, C: int) -> Routing:
+    """Top-k routing of ``xg`` [G, gs, D] with capacity ``C``."""
+    G, gs, _ = xg.shape
+    E, k = spec.n_experts, spec.top_k
     # the router in mixed precision: the router cast to the activations'
     # dtype, the products accumulated in float32
-    logits = torch.einsum("gtd,de->gte", xg.float(), p["router"].to(xg.dtype).float())
+    logits = torch.einsum("gtd,de->gte", xg.float(), router.to(xg.dtype).float())
     probs = torch.softmax(logits, -1)
     gate, eidx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate, eidx = gate[..., :k], eidx[..., :k]                 # [G,gs,k]
@@ -100,6 +112,18 @@ def moe_layer(x, p, spec: MoESpec):
     pos = torch.cumsum(flat, 1, dtype=torch.int32) * flat - 1
     pos = pos.reshape(G, gs, k, E).amax(-1)                   # [G,gs,k]
     keep = (pos >= 0) & (pos < C)
+    return Routing(logits, probs, gate, eidx, oh, pos, keep)
+
+
+def moe_layer(x, p, spec: MoESpec):
+    """x [T, D] → (y [T, D], aux losses dict). T % group_size == 0."""
+    T, D = x.shape
+    gs = min(spec.group_size, T)
+    G = T // gs
+    E = spec.n_experts
+    C = _capacity(gs, spec)
+    xg = x.reshape(G, gs, D)
+    logits, probs, gate, _, oh, pos, keep = route(xg, p["router"], spec, C)
 
     nchunk = min(spec.group_chunks or 1, G)
     if nchunk > 1 and G % nchunk == 0:

@@ -173,23 +173,37 @@ _CHUNK = 1 << 24     # elements hashed at a time (bounds the temporaries)
 _M32 = 0xFFFFFFFF
 
 
-def _bits_chunk(key: np.ndarray, start: int, n: int, device):
+def _as_int32(v: int) -> int:
+    """The uint32 value ``v`` (mod 2³²) as the int32 of the same bits."""
+    return ((v + 2**31) & _M32) - 2**31
+
+
+def _bits32_chunk(key: np.ndarray, start: int, n: int, device):
     """:func:`random_bits` of the flat indices [start, start + n) as an
-    int64 tensor of uint32 values: :func:`_threefry2x32` on int64."""
+    int32 tensor of the same bits: :func:`_threefry2x32` on int32, whose
+    adds wrap as uint32's do; a right shift masks off the sign's copies."""
     import torch
 
     idx = torch.arange(start, start + n, dtype=torch.int64, device=device)
     k0, k1 = int(key[0]), int(key[1])
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
-    x0 = (idx >> 32).add_(ks[0]).bitwise_and_(_M32)
-    x1 = idx.bitwise_and_(_M32).add_(ks[1]).bitwise_and_(_M32)
+    x0 = (idx >> 32).to(torch.int32).add_(_as_int32(ks[0]))
+    x1 = idx.to(torch.int32).add_(_as_int32(ks[1]))      # the low words
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
-            x0.add_(x1).bitwise_and_(_M32)
-            x1 = ((x1 << r).bitwise_and_(_M32) | (x1 >> (32 - r))) ^ x0
-        x0.add_(ks[(i + 1) % 3]).bitwise_and_(_M32)
-        x1.add_(ks[(i + 2) % 3] + i + 1).bitwise_and_(_M32)
+            x0.add_(x1)
+            x1 = ((x1 << r) | (x1 >> (32 - r)).bitwise_and_((1 << r) - 1)) ^ x0
+        x0.add_(_as_int32(ks[(i + 1) % 3]))
+        x1.add_(_as_int32(ks[(i + 2) % 3] + i + 1))
     return x0 ^ x1
+
+
+def _bits_chunk(key: np.ndarray, start: int, n: int, device):
+    """:func:`random_bits` of the flat indices [start, start + n) as an
+    int64 tensor of uint32 values."""
+    import torch
+
+    return _bits32_chunk(key, start, n, device).to(torch.int64).bitwise_and_(_M32)
 
 
 def _fill(shape, dtype, device, chunk_fn):
@@ -221,8 +235,9 @@ def _uniform_chunk(key, start, n, lo, hi, device):
     """:func:`uniform`'s float32 steps on the bits of one chunk."""
     import torch
 
-    bits = _bits_chunk(key, start, n, device)
-    floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    bits = _bits32_chunk(key, start, n, device)
+    floats = ((bits >> 9).bitwise_and_(0x7FFFFF).bitwise_or_(0x3F800000)
+              .view(torch.float32) - 1.0)
     lo_t = torch.tensor(lo, device=device)
     return torch.maximum(lo_t, floats * torch.tensor(hi - lo, device=device)
                          + lo_t)
@@ -274,24 +289,29 @@ def torch_bernoulli(key: np.ndarray, p: float, shape, device):
 
 def _erf_inv_t(x):
     """:func:`_erf_inv` on a float32 tensor: the same polynomial, each
-    step rounded once from float64."""
+    step rounded once from float64 (a product of two float32 values is
+    exact in float64, so ``addcmul`` fused or not gives the same sum)."""
     import torch
 
     f32 = lambda v: torch.tensor(np.float32(v), device=x.device)
+    f64 = lambda v: torch.tensor(np.float64(np.float32(v)), device=x.device)
     w = -torch.log1p(-x * x)
     lt = w < 5.0
     w = torch.where(lt, w - f32(2.5), torch.sqrt(w) - f32(3.0)).double()
     p = torch.where(lt, f32(_ERFINV_W_LT_5[0]), f32(_ERFINV_W_GE_5[0]))
     for a, b in zip(_ERFINV_W_LT_5[1:], _ERFINV_W_GE_5[1:]):
-        c = torch.where(lt, f32(a), f32(b)).double()
-        p = (c + p.double() * w).to(torch.float32)
+        c = torch.where(lt, f64(a), f64(b))
+        p = torch.addcmul(c, p.double(), w).to(torch.float32)
     return torch.where(x.abs() == 1.0, x * f32(np.finfo(np.float32).max),
                        p * x)
 
 
 def torch_truncated_normal(key: np.ndarray, lower: float, upper: float,
-                           shape, device):
-    """:func:`truncated_normal` as a float32 tensor on ``device``."""
+                           shape, device, scale=None, dtype=None):
+    """:func:`truncated_normal` as a float32 tensor on ``device``; with
+    ``scale``, each draw times ``float32(scale)``, and with ``dtype``,
+    cast to it. Both steps are elementwise and taken chunk by chunk, so a
+    leaf of billions of weights never exists in float32 as a whole."""
     import torch
 
     f32 = np.float32
@@ -302,8 +322,12 @@ def torch_truncated_normal(key: np.ndarray, lower: float, upper: float,
     clip = (float(np.nextafter(lo, f32(np.inf))),
             float(np.nextafter(up, f32(-np.inf))))
 
+    s = None if scale is None else torch.tensor(np.float32(scale), device=device)
+    dtype = dtype or torch.float32
+
     def chunk(start, n):
         u = _uniform_chunk(key, start, n, a, b, device)
-        return (torch.tensor(sqrt2, device=device) * _erf_inv_t(u)).clamp_(*clip)
+        z = (torch.tensor(sqrt2, device=device) * _erf_inv_t(u)).clamp_(*clip)
+        return (z if s is None else s * z).to(dtype)
 
-    return _fill(shape, torch.float32, device, chunk)
+    return _fill(shape, dtype, device, chunk)
